@@ -1,0 +1,47 @@
+from zeldaengine_tpu_torch.ops.rasterize import (
+    TriangleSetup,
+    triangle_setup,
+    rasterize_visibility,
+    rasterize_depth,
+    interpolation_coeffs,
+)
+from zeldaengine_tpu_torch.ops.rasterize_cuda import (
+    PairedTriangles,
+    build_pairs,
+    rasterize_pairs,
+    rasterize_pairs_fused,
+    rasterize_pairs_plain,
+    rasterize_pairs_fused_plain,
+)
+from zeldaengine_tpu_torch.ops.shadow import (
+    compute_shadow_coord,
+    compute_pcf,
+)
+from zeldaengine_tpu_torch.ops.pcf_cuda import (
+    compute_pcf_vmem,
+    compute_pcf_plain,
+)
+from zeldaengine_tpu_torch.ops.window_tap import (
+    sample_base_window,
+    sample_base_window_plain,
+)
+
+# The hand-written kernels, by the name of their C entry point (minus the
+# ``zk_`` prefix), with the wrapper that launches each. Every wrapper
+# carries a plain integer ``launches`` that it raises by one where it
+# launches its kernel, and nowhere else.
+KERNEL_WRAPPERS = {
+    "pair_raster": rasterize_pairs,
+    "pair_raster_fused": rasterize_pairs_fused,
+    "pcf_taps": compute_pcf_vmem,
+    "bilinear_tap": sample_base_window,
+}
+
+
+def kernel_launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def reset_kernel_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0

@@ -1,0 +1,714 @@
+"""Exact-pair tiled rasterizer - the performance path.
+
+Same math as ``ops/rasterize.py`` (homogeneous edge functions from
+``triangle_setup``), scheduled for the card:
+
+- **Exact-pair binning** (``build_pairs``, plain tensor ops): every
+  triangle emits one (tile, triangle) pair per screen tile its bbox covers
+  (up to ``expand``); bigger triangles emit supertile pairs, and the few
+  that exceed the supertile budget land in one global bucket walked by all
+  tiles. Pairs are sorted by bin (one stable sort) and the per-triangle
+  records are gathered into pair order, so each tile owns a dense,
+  exactly-sized range of record rows.
+- **Kernels** (``csrc/pair_raster.cu``, ``csrc/pair_raster_fused.cu``): one
+  thread block per tile walks its dense, supertile and global ranges and
+  keeps per pixel the minimum depth and the lowest pair id at that depth;
+  the fused kernel then interpolates the winner's attributes.
+
+Depth is evaluated in barycentric form, ``d = sum_i e_i * zc_i``: the
+algebraically-equivalent folded screen-linear form cancels
+catastrophically near z ~ 1, where shadow projections pack their depth.
+
+Beside each kernel stands its plain PyTorch version
+(``rasterize_pairs_plain``, ``rasterize_pairs_fused_plain``) on the same
+``PairedTriangles``: it runs for CPU tensors, in the tests, and as the
+yardstick the kernels are held against on the card.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from zeldaengine_tpu_torch.ops import _build
+from zeldaengine_tpu_torch.ops.rasterize import TriangleSetup
+
+
+class PairedTriangles(NamedTuple):
+    """Exact (tile, triangle) pair stream for the pair rasterizer.
+
+    ``records`` holds per-PAIR rasterization records gathered into sorted
+    pair order, one row-major row per pair; tile t's pairs occupy the
+    contiguous index range [starts[t], ends[t]). Triangles whose bbox
+    covers more than ``expand`` tiles get SUPERTILE pairs (a supertile is
+    ``super_h x super_w`` tiles; range [sstarts[s], sends[s]) walked by
+    each of the supertile's tiles); only triangles too big for the
+    supertile budget land in the global bucket [gbounds[0], gbounds[1])
+    walked by every tile."""
+
+    records: torch.Tensor  # (P, rec_w) float32
+    pair_tri: torch.Tensor  # (P,) int32 original triangle id
+    starts: torch.Tensor  # (n_tiles,) int32 first pair index of the tile
+    ends: torch.Tensor  # (n_tiles,) int32 one-past-last pair index
+    sstarts: torch.Tensor  # (n_super,) int32 supertile range start
+    sends: torch.Tensor  # (n_super,) int32 supertile range end
+    gbounds: torch.Tensor  # (2,) int32 global-bucket [start, end)
+    # Number of LIVE pairs dropped by the ``max_pairs`` capacity (0 when
+    # uncapped), a () int32 tensor.
+    overflow: torch.Tensor | int = 0
+
+
+# Supertile geometry and its pair budget: a triangle covering more than
+# ``expand`` tiles emits up to SUPER_EXPAND supertile pairs (each walked by
+# super_h*super_w tiles) before falling into the global bucket walked by
+# EVERY tile. The supertile PIXEL footprint stays constant (64 x 512 px)
+# as the tile shape changes.
+SUPER_W = 4
+SUPER_EXPAND = 4
+
+
+def _super_h(tile_h: int) -> int:
+    """Supertile height in tiles: fixed 64-px footprint."""
+    return max(1, 64 // tile_h)
+
+
+def _super_w(tile_w: int) -> int:
+    """Supertile width in tiles: fixed 512-px footprint."""
+    return max(1, (SUPER_W * 128) // max(tile_w, 1))
+
+
+def _covers_pixel_center(bbox):
+    """EXACT sub-pixel cull: coverage samples pixel CENTERS (x + 0.5), so
+    a triangle whose bbox straddles no center in x or in y rasterizes zero
+    pixels anywhere. Conservative: only culls when the bbox PROVABLY
+    contains no center."""
+    has_cx = torch.floor(bbox[:, 2] - 0.5) + 0.5 >= bbox[:, 0]
+    has_cy = torch.floor(bbox[:, 3] - 0.5) + 0.5 >= bbox[:, 1]
+    return has_cx & has_cy
+
+
+def build_pairs(
+    setup: TriangleSetup,
+    width: int,
+    height: int,
+    tile_h: int,
+    tile_w: int,
+    expand: int = 8,
+    y0_tiles: int = 0,
+    extra: Optional[torch.Tensor] = None,
+    max_pairs: Optional[int] = None,
+    sort_z: bool = False,
+    align: bool = False,
+    ysort_sub_rows: Optional[int] = None,
+    gather_chunks: int = 1,
+    gather_pack: int = 1,
+    center_cull: bool = False,
+) -> PairedTriangles:
+    """Compact triangles into exact per-tile pair lists.
+
+    ``extra``: optional (T, E) float32 per-triangle payload columns
+    appended to the 12 rasterization columns (record columns 12..12+E-1,
+    the row width rounded up to a multiple of 16). The fused kernel uses
+    the material-combo id + 3 corners x interpolants.
+
+    ``sort_z``: order each bin's pairs FRONT TO BACK by the triangle's
+    conservative ``setup.zmin`` (quantized into the low sort-key bits)
+    instead of by triangle id. Coverage and depths are unchanged; only
+    exact-depth ties between DIFFERENT triangles can resolve to another
+    winner (the kernel keeps the lowest PAIR id among minimum-depth
+    candidates).
+
+    ``ysort_sub_rows``: bucket each bin's pairs by the triangle's first
+    covered ``sub_rows``-row strip ahead of the z order, and append a
+    record column carrying the triangle's packed absolute strip span
+    (``ysub1 * 4096 + ysub0``).
+
+    The sort key is assembled in int32 with the same bit budget as the
+    JAX package ((n_bins << (ybits + zbits)) < 2^31) and sorted with a
+    STABLE sort: pair order within equal keys decides winners at exact
+    depth ties, so both must match for the two packages to agree there.
+
+    ``gather_chunks`` / ``gather_pack`` are layouts of the record gather
+    that only matter to the JAX package's schedule: accepted and ignored
+    (every value gives the same records). ``align`` is not ported.
+    """
+    if align:
+        raise NotImplementedError(
+            "pair_align (slice-aligned bins) is not ported yet "
+            "(ROADMAP.md A2: build_pairs align)")
+    del gather_chunks, gather_pack
+    edge = setup.edge
+    dev = edge.device
+    f32 = torch.float32
+    t = edge.shape[0]
+    n_tx = -(-width // tile_w)
+    n_ty = -(-height // tile_h)
+    n_tiles = n_ty * n_tx
+    y0f = float(y0_tiles)
+    # Supertile grid + the z sort-key bit budget (all static).
+    super_w = _super_w(tile_w)
+    n_sx = -(-n_tx // super_w)
+    super_h = _super_h(tile_h)
+    n_sy = -(-n_ty // super_h)
+    n_super = n_sy * n_sx
+    n_bins = n_tiles + n_super + 2  # dense + super + global + dead
+    has_z = 1 if (sort_z and setup.zmin is not None) else 0
+    has_y = 1 if ysort_sub_rows else 0
+    n_sub = (tile_h // ysort_sub_rows) if has_y else 1
+    ybits = max(1, (n_sub - 1).bit_length()) if has_y else 0
+    # Front-to-back key low bits: (n_bins << (ybits + zbits)) < 2^31.
+    zbits = (min(16, 30 - max(n_bins - 1, 1).bit_length() - ybits)
+             if has_z else 0)
+    zscale = float((1 << zbits) - 1) if has_z else 1.0
+
+    n_extra = 0 if extra is None else extra.shape[1]
+    rec_w = max(16, ((12 + n_extra + has_z + has_y + 15) // 16) * 16)
+    never = torch.zeros((rec_w,), dtype=f32, device=dev)
+    never[2] = never[5] = never[8] = -1.0
+    if has_y:
+        # Never-record y span: ysub0 = 4095, ysub1 = 0 (an empty span).
+        never[12 + n_extra + has_z] = 4095.0
+    bbox = setup.bbox
+    cols = [edge.reshape(t, 9), setup.zc]
+    if extra is not None:
+        cols.append(extra.to(f32))
+    if has_z:
+        # Column 12+n_extra carries the triangle's SORT-BUCKET floor
+        # (quantized zmin).
+        zq_val = torch.floor(
+            torch.clamp(setup.zmin, 0.0, 1.0) * zscale) / zscale
+        cols.append(zq_val[:, None])
+    if has_y:
+        # Absolute strip span of the binning bbox, packed into one column
+        # (both < 4096; the packed value < 2^24 stays exact in f32).
+        ysub0 = torch.clamp(torch.floor(bbox[:, 1] / ysort_sub_rows), 0.0,
+                            4095.0)
+        ysub1 = torch.clamp(torch.ceil(bbox[:, 3] / ysort_sub_rows) - 1.0,
+                            0.0, 4095.0)
+        cols.append((ysub1 * 4096.0 + ysub0)[:, None])
+    pad_cols = rec_w - 12 - n_extra - has_z - has_y
+    if pad_cols:
+        cols.append(torch.zeros((t, pad_cols), dtype=f32, device=dev))
+    rec = torch.cat(cols, dim=1)
+    rec = torch.where(setup.valid[:, None], rec, never[None, :])
+    rec16 = torch.cat([rec, never[None, :]], dim=0)  # row t = dead
+
+    # Covered tile ranges (band-relative rows).
+    tx0 = torch.clamp(torch.floor(bbox[:, 0] / tile_w), 0, n_tx - 1)
+    ty0 = torch.clamp(torch.floor(bbox[:, 1] / tile_h) - y0f, 0, n_ty - 1)
+    tx1 = torch.clamp(torch.ceil(bbox[:, 2] / tile_w) - 1.0, 0, n_tx - 1)
+    ty1 = torch.clamp(torch.ceil(bbox[:, 3] / tile_h) - 1.0 - y0f, 0,
+                      n_ty - 1)
+    # Live = valid AND bbox intersects this row band AND overlaps the
+    # screen in x.
+    live = (
+        setup.valid
+        & (bbox[:, 2] > bbox[:, 0])
+        & (bbox[:, 3] > bbox[:, 1])
+        & (bbox[:, 2] > 0)
+        & (bbox[:, 0] < width)
+        & (bbox[:, 3] / tile_h > y0f)
+        & (bbox[:, 1] / tile_h < y0f + n_ty)
+    )
+    if center_cull:
+        live = live & _covers_pixel_center(bbox)
+    zero = torch.zeros_like(tx0)
+    nx = (tx1 - tx0 + 1.0)
+    ny = (ty1 - ty0 + 1.0)
+    ncov = torch.where(live, nx * ny, zero)
+
+    # Supertile ranges (two-level binning; see SUPER_* above).
+    sx0 = torch.floor(tx0 / super_w)
+    sy0 = torch.floor(ty0 / super_h)
+    sx1 = torch.floor(tx1 / super_w)
+    sy1 = torch.floor(ty1 / super_h)
+    snx = sx1 - sx0 + 1.0
+    ncov_s = torch.where(live, snx * (sy1 - sy0 + 1.0), zero)
+
+    # Pair expansion: slot e of a small triangle covers tile
+    # (ty0 + e // nx, tx0 + e % nx); slot e < SUPER_EXPAND of a medium
+    # triangle covers supertile (sy0 + e // snx, sx0 + e % snx), keyed
+    # after the dense tiles. DEAD sorts after the global bucket.
+    g_key = float(n_tiles + n_super)
+    dead = g_key + 1.0
+    e = torch.arange(expand, dtype=f32, device=dev)[None, :]
+    ey = torch.floor((e + 0.5) / nx[:, None])
+    ex = e - ey * nx[:, None]
+    tile = (ty0[:, None] + ey) * n_tx + (tx0[:, None] + ex)
+    sey = torch.floor((e + 0.5) / snx[:, None])
+    sex = e - sey * snx[:, None]
+    stile = n_tiles + (sy0[:, None] + sey) * n_sx + (sx0[:, None] + sex)
+    small = ncov <= expand
+    med = (~small) & (ncov_s <= SUPER_EXPAND)
+    dead_t = torch.full_like(tile, dead)
+    keys = torch.where(
+        (e < ncov[:, None]) & small[:, None], tile,
+        torch.where((e < ncov_s[:, None]) & med[:, None], stile, dead_t),
+    )
+    # Oversized triangles: one pair in the global bucket.
+    keys[:, 0] = torch.where(live & ~small & ~med,
+                             torch.full_like(ncov, g_key), keys[:, 0])
+    pad = (-(t * expand)) % 128
+
+    def pad_flat(a, value):
+        return torch.nn.functional.pad(a.reshape(-1), (0, pad), value=value)
+
+    keys = pad_flat(keys, dead)
+    tri_ids = torch.arange(t, dtype=torch.int32, device=dev)[:, None] \
+        .expand(t, expand)
+    tri_ids = pad_flat(tri_ids, t)
+    tri_ids = torch.where(keys >= dead, torch.full_like(tri_ids, t), tri_ids)
+
+    shift = ybits + zbits
+    if has_z or has_y:
+        # Within-bin order: key = bin << (ybits + zbits) | y-bucket <<
+        # zbits | quantized zmin.
+        low = torch.zeros_like(tri_ids)
+        if has_y:
+            # First covered strip RELATIVE to the pair's own tile (dense
+            # pairs only; supertile/global pairs take bucket 0).
+            yb_tri = torch.clamp(torch.floor(bbox[:, 1] / ysort_sub_rows),
+                                 0.0, 4095.0)
+            tile_base = (ty0[:, None] + ey + y0f) * float(n_sub)
+            yb = torch.clamp(yb_tri[:, None] - tile_base, 0.0,
+                             float(n_sub - 1))
+            yb = torch.where((e < ncov[:, None]) & small[:, None], yb,
+                             torch.zeros_like(yb))
+            low = pad_flat(yb, 0.0).to(torch.int32) << zbits
+        if has_z:
+            zq = torch.clamp(
+                torch.floor(setup.zmin * zscale), 0.0, zscale
+            ).to(torch.int32)
+            zq = pad_flat(zq[:, None].expand(t, expand), 0)
+            low = low | zq
+        keys_i = (keys.to(torch.int32) << shift) | low
+    else:
+        keys_i = keys.to(torch.int32)
+
+    skey, order = torch.sort(keys_i, stable=True)
+    stri = tri_ids[order]
+
+    # Live-pair capacity: dead pairs sort LAST, so the live pairs occupy a
+    # prefix of the sorted stream - slicing to ``max_pairs`` makes the
+    # O(P) record gather track the POST-CULL pair count. Overflow (live
+    # pairs beyond the cap) is counted; ranges clamp automatically because
+    # searchsorted runs on the sliced keys.
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    if max_pairs is not None and max_pairs < skey.shape[0]:
+        cap = max(128, (max_pairs // 128) * 128)
+        live_end = torch.searchsorted(
+            skey,
+            torch.tensor([(n_tiles + n_super + 1) << shift],
+                         dtype=torch.int32, device=dev),
+        )[0].to(torch.int32)
+        overflow = torch.clamp_min(live_end - cap, 0)
+        skey = skey[:cap].contiguous()
+        stri = stri[:cap]
+
+    # Per-bin offsets via binary search over the SORTED keys. Bin b's keys
+    # occupy [b << k, (b+1) << k), k = ybits + zbits.
+    off = torch.searchsorted(
+        skey, torch.arange(n_bins, dtype=torch.int32, device=dev) << shift,
+    ).to(torch.int32)
+    starts = off[:n_tiles]
+    ends = off[1 : n_tiles + 1]
+    sstarts = off[n_tiles : n_tiles + n_super]
+    sends = off[n_tiles + 1 : n_tiles + n_super + 1]
+    gbounds = off[n_tiles + n_super : n_tiles + n_super + 2]
+
+    records = rec16[stri.long()]  # (P, rec_w)
+    return PairedTriangles(
+        records=records,
+        pair_tri=stri.contiguous(),
+        starts=starts.contiguous(),
+        ends=ends.contiguous(),
+        sstarts=sstarts.contiguous(),
+        sends=sends.contiguous(),
+        gbounds=gbounds.contiguous(),
+        overflow=overflow,
+    )
+
+
+# ------------------------------------------------------------ plain version
+
+
+def _tile_pair_list(pairs: PairedTriangles, n_ty: int, n_tx: int,
+                    tile_h: int, tile_w: int):
+    """Expand the three range levels to one flat (tile, pair) list."""
+    dev = pairs.records.device
+    n_tiles = n_ty * n_tx
+    super_h, super_w = _super_h(tile_h), _super_w(tile_w)
+    n_sx = -(-n_tx // super_w)
+    i64 = torch.int64
+
+    def ranges_to_list(starts, ends):
+        # (bin, pair) for every pair of every [starts[b], ends[b]).
+        lens = (ends - starts).to(i64).clamp_min(0)
+        bins = torch.repeat_interleave(
+            torch.arange(starts.shape[0], device=dev), lens)
+        first = torch.cumsum(lens, 0) - lens
+        within = torch.arange(bins.shape[0], device=dev) - first[bins]
+        return bins, starts.to(i64)[bins] + within
+
+    d_tile, d_pair = ranges_to_list(pairs.starts, pairs.ends)
+    s_bin, s_pair = ranges_to_list(pairs.sstarts, pairs.sends)
+    # Supertile s covers tiles (sy*super_h + dy, sx*super_w + dx).
+    dy = torch.arange(super_h, device=dev).repeat_interleave(super_w)
+    dx = torch.arange(super_w, device=dev).repeat(super_h)
+    t_y = (s_bin // n_sx)[:, None] * super_h + dy[None, :]
+    t_x = (s_bin % n_sx)[:, None] * super_w + dx[None, :]
+    ok = (t_y < n_ty) & (t_x < n_tx)
+    s_tile = (t_y * n_tx + t_x)[ok]
+    s_pair = s_pair[:, None].expand(-1, dy.shape[0])[ok]
+    g0, g1 = int(pairs.gbounds[0]), int(pairs.gbounds[1])
+    g_pairs = torch.arange(g0, max(g1, g0), device=dev)
+    g_tile = torch.arange(n_tiles, device=dev).repeat_interleave(
+        g_pairs.shape[0])
+    g_pair = g_pairs.repeat(n_tiles)
+    return (torch.cat([d_tile, s_tile, g_tile]),
+            torch.cat([d_pair, s_pair, g_pair]))
+
+
+def _plain_visibility(pairs: PairedTriangles, height: int, width: int,
+                      init_depth, tile_h: int, tile_w: int,
+                      want_id: bool = True, chunk_elems: int = 1 << 22):
+    """(depth (H, W), winner pair id (H, W) int64 or None) by the kernel's
+    rule: minimum depth; lowest pair id among minimum-depth candidates;
+    ``init_depth`` wins ties with id -1. Candidates are evaluated with the
+    kernel's arithmetic in the kernel's operation order."""
+    dev = pairs.records.device
+    assert height % tile_h == 0 and width % tile_w == 0, (
+        height, width, tile_h, tile_w)
+    n_ty, n_tx = height // tile_h, width // tile_w
+    assert pairs.starts.shape == (n_ty * n_tx,), (
+        pairs.starts.shape, n_ty * n_tx)
+    tiles, pids = _tile_pair_list(pairs, n_ty, n_tx, tile_h, tile_w)
+    tp = tile_h * tile_w
+    loc = torch.arange(tp, device=dev)
+    lx, ly = loc % tile_w, loc // tile_w
+    if init_depth is None:
+        init = torch.ones((height * width,), dtype=torch.float32, device=dev)
+    else:
+        init = init_depth.to(torch.float32).reshape(-1)
+    depth = init.clone()
+    inf = float("inf")
+    n_chunk = max(1, chunk_elems // tp)
+
+    def candidates(sl):
+        t = tiles[sl]
+        r = pairs.records[pids[sl]][:, :12]  # (C, 12)
+        gx = (t % n_tx)[:, None] * tile_w + lx[None, :]  # (C, TP)
+        gy = (t // n_tx)[:, None] * tile_h + ly[None, :]
+        px = gx.to(torch.float32) + 0.5
+        py = gy.to(torch.float32) + 0.5
+
+        def c(i):
+            return r[:, i : i + 1]
+
+        e0 = px * c(0) + py * c(1) + c(2)
+        e1 = px * c(3) + py * c(4) + c(5)
+        e2 = px * c(6) + py * c(7) + c(8)
+        d = e0 * c(9) + e1 * c(10) + e2 * c(11)
+        esum = e0 + e1 + e2
+        emin = torch.minimum(torch.minimum(e0, e1), e2)
+        inside = (emin >= 0.0) & (esum > 0.0) & (d >= 0.0) & (d <= 1.0)
+        cand = torch.where(inside, d, torch.full_like(d, inf))
+        return cand.reshape(-1), (gy * width + gx).reshape(-1)
+
+    n = tiles.shape[0]
+    for s in range(0, n, n_chunk):
+        cand, pix = candidates(slice(s, s + n_chunk))
+        depth.scatter_reduce_(0, pix, cand, "amin", include_self=True)
+    if not want_id:
+        return depth.reshape(height, width), None
+    big = torch.iinfo(torch.int64).max
+    pid = torch.full((height * width,), big, dtype=torch.int64, device=dev)
+    for s in range(0, n, n_chunk):
+        sl = slice(s, s + n_chunk)
+        cand, pix = candidates(sl)
+        # A candidate wins only strictly below the initial depth.
+        hit = (cand == depth[pix]) & (cand < init[pix])
+        ids = pids[sl][:, None].expand(-1, tp).reshape(-1)
+        pid.scatter_reduce_(
+            0, pix, torch.where(hit, ids, torch.full_like(ids, big)),
+            "amin", include_self=True)
+    pid = torch.where(pid == big, torch.full_like(pid, -1), pid)
+    return depth.reshape(height, width), pid.reshape(height, width)
+
+
+def _map_tid(pairs: PairedTriangles, pid):
+    return torch.where(
+        pid >= 0, pairs.pair_tri[pid.clamp_min(0)],
+        torch.full((), -1, dtype=torch.int32, device=pid.device))
+
+
+def rasterize_pairs_plain(pairs: PairedTriangles, height: int, width: int,
+                          init_depth=None, tile_h: int = 32,
+                          tile_w: int = 128, depth_only: bool = False):
+    """Plain PyTorch version of ``rasterize_pairs`` (any device)."""
+    depth, pid = _plain_visibility(pairs, height, width, init_depth, tile_h,
+                                   tile_w, want_id=not depth_only)
+    if depth_only:
+        return depth
+    return depth, _map_tid(pairs, pid)
+
+
+# Output attribute planes of the fused kernel, channel-major (C, H, W):
+#   0 covered*(1 + min barycentric), 1 combo, 2-3 uv, 4 lod, 5-7 vertex
+#   color, 8-10 world pos, 11-13 interpolated world normal, 14-15 duv/dx,
+#   16-17 duv/dy, 18-20 dpos/dx, 21-23 dpos/dy.
+ATTR_CH = 24
+
+
+def fused_extra_width(need_uv: bool = True, need_combo: bool = True) -> int:
+    """Width of the fused extra payload under the static elision flags:
+    [combo id] + 3 corners x ([uv2], color3, world-pos3, world-normal3)."""
+    corner_w = 11 if need_uv else 9
+    return (1 if need_combo else 0) + 3 * corner_w
+
+
+def rasterize_pairs_fused_plain(pairs: PairedTriangles, height: int,
+                                width: int, init_depth=None,
+                                tile_h: int = 32, tile_w: int = 128,
+                                texture_size: int = 256,
+                                need_uv: bool = True, has_combo: bool = True,
+                                combo_const: float = 0.0):
+    """Plain PyTorch version of ``rasterize_pairs_fused`` (any device):
+    the plain visibility pass, one gather of the winner's record row per
+    pixel, and the kernel's epilogue in the kernel's operation order."""
+    dev = pairs.records.device
+    depth, pid = _plain_visibility(pairs, height, width, init_depth, tile_h,
+                                   tile_w)
+    covered = pid >= 0
+    rec = pairs.records[pid.clamp_min(0)]  # (H, W, rec_w)
+    rec = torch.where(covered[..., None], rec, torch.zeros_like(rec))
+    gy, gx = torch.meshgrid(torch.arange(height, device=dev),
+                            torch.arange(width, device=dev), indexing="ij")
+    px = gx.to(torch.float32) + 0.5
+    py = gy.to(torch.float32) + 0.5
+
+    def A(c):
+        return rec[..., c]
+
+    e0 = A(0) * px + A(1) * py + A(2)
+    e1 = A(3) * px + A(4) * py + A(5)
+    e2 = A(6) * px + A(7) * py + A(8)
+    esum = e0 + e1 + e2
+    one = torch.ones_like(esum)
+    zero = torch.zeros_like(esum)
+    inv = 1.0 / torch.where(torch.abs(esum) > 1e-20, esum, one)
+    inv = torch.where(covered, inv, zero)
+    b0, b1, b2 = e0 * inv, e1 * inv, e2 * inv
+
+    corner_w = 11 if need_uv else 9
+    base_r = 12 + (1 if has_combo else 0)
+    off_col = 2 if need_uv else 0
+    off_pos = off_col + 3
+    off_nrm = off_pos + 3
+
+    def interp(off, w0, w1, w2):
+        return (w0 * A(base_r + off) + w1 * A(base_r + corner_w + off)
+                + w2 * A(base_r + 2 * corner_w + off))
+
+    planes = [zero] * ATTR_CH
+    bmin = torch.minimum(torch.minimum(b0, b1), b2)
+    planes[0] = covered.to(torch.float32) * (1.0 + bmin)
+    planes[1] = A(12) if has_combo else (zero + combo_const)
+    if need_uv:
+        sax = A(0) + A(3) + A(6)
+        say = A(1) + A(4) + A(7)
+        d0x = (A(0) - b0 * sax) * inv
+        d1x = (A(3) - b1 * sax) * inv
+        d2x = (A(6) - b2 * sax) * inv
+        d0y = (A(1) - b0 * say) * inv
+        d1y = (A(4) - b1 * say) * inv
+        d2y = (A(7) - b2 * say) * inv
+        duvdx0 = interp(0, d0x, d1x, d2x)
+        duvdx1 = interp(1, d0x, d1x, d2x)
+        duvdy0 = interp(0, d0y, d1y, d2y)
+        duvdy1 = interp(1, d0y, d1y, d2y)
+        ts = float(texture_size)
+        foot = torch.maximum(
+            duvdx0 * duvdx0 + duvdx1 * duvdx1,
+            duvdy0 * duvdy0 + duvdy1 * duvdy1,
+        )
+        lod = torch.clamp_min(
+            0.5 * torch.log2(torch.clamp_min(foot * (ts * ts), 1e-12)), 0.0)
+        planes[2] = interp(0, b0, b1, b2)
+        planes[3] = interp(1, b0, b1, b2)
+        planes[4] = lod
+        planes[14], planes[15] = duvdx0, duvdx1
+        planes[16], planes[17] = duvdy0, duvdy1
+        for c in range(3):  # dpos/dx, dpos/dy
+            planes[18 + c] = interp(off_pos + c, d0x, d1x, d2x)
+            planes[21 + c] = interp(off_pos + c, d0y, d1y, d2y)
+    for c in range(3):
+        planes[5 + c] = interp(off_col + c, b0, b1, b2)  # vertex color
+        planes[8 + c] = interp(off_pos + c, b0, b1, b2)  # world pos
+        planes[11 + c] = interp(off_nrm + c, b0, b1, b2)  # world normal
+    return depth, _map_tid(pairs, pid), torch.stack(planes, dim=0)
+
+
+# ------------------------------------------------------------------ kernels
+
+
+def _use_kernel(t: torch.Tensor, backend: str) -> bool:
+    """Dispatch rule of every wrapper in the package: ``auto`` follows the
+    tensor's device, ``cuda`` demands the kernel, ``torch`` the plain
+    version."""
+    if backend == "torch":
+        return False
+    if backend == "cuda" and not t.is_cuda:
+        raise RuntimeError(
+            "backend='cuda' needs tensors on the card; got a CPU tensor")
+    if backend not in ("auto", "cuda"):
+        raise ValueError(f"unknown backend {backend!r}")
+    return t.is_cuda
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape=None, dev=None):
+    if not t.is_cuda or (dev is not None and t.device != dev):
+        raise ValueError(f"{name}: expected a tensor on {dev or 'cuda'}, "
+                         f"got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    return t.data_ptr()
+
+
+def _check_pairs(pairs: PairedTriangles, height, width, tile_h, tile_w,
+                 min_rec_w, init_depth):
+    if height % tile_h or width % tile_w:
+        raise ValueError(
+            f"frame {height}x{width} is not a multiple of the tile "
+            f"{tile_h}x{tile_w}; pad first")
+    if tile_h * tile_w > 16 * 256:
+        raise ValueError(
+            f"tile {tile_h}x{tile_w} exceeds the kernel's 4096-pixel tile")
+    n_tx, n_ty = width // tile_w, height // tile_h
+    super_h, super_w = _super_h(tile_h), _super_w(tile_w)
+    n_sx = -(-n_tx // super_w)
+    n_super = n_sx * -(-n_ty // super_h)
+    dev = pairs.records.device
+    if pairs.records.ndim != 2 or pairs.records.shape[1] < min_rec_w:
+        raise ValueError(
+            f"records: expected (P, >= {min_rec_w}), got "
+            f"{tuple(pairs.records.shape)}")
+    p = pairs.records.shape[0]
+    i32 = torch.int32
+    ptrs = [
+        _check(pairs.records, "records", torch.float32, dev=dev),
+        pairs.records.shape[1],
+        _check(pairs.starts, "starts", i32, (n_ty * n_tx,), dev),
+        _check(pairs.ends, "ends", i32, (n_ty * n_tx,), dev),
+        _check(pairs.sstarts, "sstarts", i32, (n_super,), dev),
+        _check(pairs.sends, "sends", i32, (n_super,), dev),
+        _check(pairs.gbounds, "gbounds", i32, (2,), dev),
+        _check(pairs.pair_tri, "pair_tri", i32, (p,), dev),
+        None if init_depth is None else _check(
+            init_depth, "init_depth", torch.float32, (height, width), dev),
+    ]
+    return ptrs, (n_sx, super_h, super_w)
+
+
+def rasterize_pairs(
+    pairs: PairedTriangles,
+    height: int,
+    width: int,
+    init_depth: Optional[torch.Tensor] = None,
+    tile_h: int = 32,
+    tile_w: int = 128,
+    sub_rows: int = 8,
+    depth_only: bool = False,
+    y_row: int = -1,
+    backend: str = "auto",
+):
+    """Rasterize an exact pair stream to (depth, triangle-id) buffers.
+
+    Returns (depth, tid) with tid = ORIGINAL triangle ids (-1 uncovered),
+    or just depth when ``depth_only``. Tensors on the card go to kernel
+    ``pair_raster``; CPU tensors (or ``backend="torch"``) to
+    ``rasterize_pairs_plain``. ``sub_rows`` / ``y_row`` name the record's
+    packed strip span, which the kernel does not use (results are
+    identical with or without the skip it enables).
+    """
+    del sub_rows, y_row
+    if not _use_kernel(pairs.records, backend):
+        return rasterize_pairs_plain(pairs, height, width, init_depth,
+                                     tile_h, tile_w, depth_only)
+    ptrs, geom = _check_pairs(pairs, height, width, tile_h, tile_w, 12,
+                              init_depth)
+    dev = pairs.records.device
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    tid = None if depth_only else torch.empty(
+        (height, width), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = _build.load().zk_pair_raster(
+            *ptrs, depth.data_ptr(),
+            None if tid is None else tid.data_ptr(),
+            height, width, tile_h, tile_w, *geom, int(depth_only),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "pair_raster")
+    rasterize_pairs.launches += 1
+    return depth if depth_only else (depth, tid)
+
+
+rasterize_pairs.launches = 0
+
+
+def rasterize_pairs_fused(
+    pairs: PairedTriangles,
+    height: int,
+    width: int,
+    init_depth: Optional[torch.Tensor] = None,
+    tile_h: int = 32,
+    tile_w: int = 128,
+    sub_rows: int = 8,
+    texture_size: int = 256,
+    y_row: int = -1,
+    need_uv: bool = True,
+    has_combo: bool = True,
+    combo_const: float = 0.0,
+    backend: str = "auto",
+):
+    """Rasterize + interpolate in one kernel.
+
+    ``pairs`` must be built with ``extra`` = (T, fused_extra_width(
+    need_uv, has_combo)) fused payload. Returns (depth, tid, attrs) with
+    tid = ORIGINAL triangle ids and attrs = (ATTR_CH, height, width)
+    float32 planes (uv/lod/duv/dpos planes are zeros when ``need_uv`` is
+    off). Tensors on the card go to kernel ``pair_raster_fused``; CPU
+    tensors (or ``backend="torch"``) to ``rasterize_pairs_fused_plain``.
+    """
+    del sub_rows, y_row
+    min_w = 12 + fused_extra_width(need_uv, has_combo)
+    assert pairs.records.shape[1] >= min_w, (
+        pairs.records.shape, need_uv, has_combo)
+    if not _use_kernel(pairs.records, backend):
+        return rasterize_pairs_fused_plain(
+            pairs, height, width, init_depth, tile_h, tile_w, texture_size,
+            need_uv, has_combo, combo_const)
+    ptrs, geom = _check_pairs(pairs, height, width, tile_h, tile_w, min_w,
+                              init_depth)
+    dev = pairs.records.device
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    tid = torch.empty((height, width), dtype=torch.int32, device=dev)
+    attrs = torch.empty((ATTR_CH, height, width), dtype=torch.float32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        code = _build.load().zk_pair_raster_fused(
+            *ptrs, depth.data_ptr(), tid.data_ptr(), attrs.data_ptr(),
+            height, width, tile_h, tile_w, *geom, int(texture_size),
+            int(need_uv), int(has_combo), float(combo_const),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "pair_raster_fused")
+    rasterize_pairs_fused.launches += 1
+    return depth, tid, attrs
+
+
+rasterize_pairs_fused.launches = 0

@@ -1,0 +1,319 @@
+"""Texture storage and sampling.
+
+Replaces the reference's texture factory + samplers
+(RHICreateTextureResource ZeldaEngine.cpp:5855, RHIGenerateMipmaps :6348,
+RHICreateSampler :6523 - repeat addressing, trilinear mips).
+
+All 2D textures of a pool share one square size and live in a single
+**mip atlas** array of shape (N, H, 2W, C). Level 0 occupies x in [0, W);
+level k >= 1 occupies x in [W * (2 - 2^(1-k)), ...), y from 0. Mip offsets
+are static constants, so a sample at a per-pixel LOD is pure index
+arithmetic plus one gather per tap. Cubemaps are 6 consecutive layers in
+their own pool. Mip generation is 2x2 box filtering (the practical
+equivalent of the reference's repeated vkCmdBlitImage linear-filter chain).
+
+This module holds the NumPy atlas packers (the scene build packs on the
+host and uploads once) and the mip-0 / fixed-level packed samplers. The
+trilinear and mip-pair samplers serve textured scenes and are not ported
+yet (ROADMAP.md A4).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def mip_count(size: int) -> int:
+    return int(size).bit_length()
+
+
+def mip_offset_x(level: int, base: int) -> int:
+    """X offset of a mip level inside the (H, 2W) atlas."""
+    if level == 0:
+        return 0
+    return int(base * (2.0 - 2.0 ** (1 - level)) + 0.5)
+
+
+def round_bf16(a: np.ndarray) -> np.ndarray:
+    """Round float32 values to the nearest bfloat16 (ties to even) and
+    return them as float32. NumPy has no bfloat16; the atlases are carried
+    as float32 on the host and cast (exactly) to ``torch.bfloat16`` at
+    upload."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return t.to(torch.bfloat16).to(torch.float32).numpy()
+
+
+def _mip_offsets_table(base: int, device) -> torch.Tensor:
+    return torch.tensor(
+        [mip_offset_x(l, base) for l in range(mip_count(base))],
+        dtype=torch.float32, device=device,
+    )
+
+
+def _is_packed(atlas: torch.Tensor) -> bool:
+    """Neighborhood-packed atlases carry 4x (2x2 footprint) or 13x
+    (mip-pair footprint) the base channels; plain RGBA atlases have C=4."""
+    return atlas.shape[-1] >= 16
+
+
+def _packed_base_channels(c_all: int) -> int:
+    """Base channel count of a packed atlas row.
+
+    Mip-pair rows hold 13 groups (2x2 at level l + 3x3 at l+1), plain
+    packed rows hold 4 (2x2). Base channels are 4 or 16, so the counts
+    (52/208 vs 16/64) never collide."""
+    if c_all % 13 == 0:
+        return c_all // 13
+    return c_all // 4
+
+
+def sample_base(atlas: torch.Tensor, layer, uv, base: int,
+                quad: bool = False):
+    """Bilinear tap at mip 0 (``texture()`` without explicit derivatives,
+    as the GBuffer pass effectively uses for magnified textures)."""
+    if quad or _is_packed(atlas):
+        return sample_bilinear_level_packed(
+            atlas, layer, uv,
+            torch.zeros((), dtype=torch.int32, device=uv.device), base,
+            quad=quad,
+        )
+    raise NotImplementedError(
+        "unpacked RGBA atlases are not ported yet (ROADMAP.md A4: "
+        "ops/texture.py samplers)")
+
+
+# ------------------------------------------------------------------- cubemap
+
+
+def cube_direction_to_face_uv(d):
+    """GL/Vulkan cube face selection. d: (..., 3) direction (need not be
+    normalized). Returns (face (...,) int32, uv (..., 2))."""
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    ax, ay, az = torch.abs(x), torch.abs(y), torch.abs(z)
+    eps = 1e-20
+    # face indices: 0:+X 1:-X 2:+Y 3:-Y 4:+Z 5:-Z
+    is_x = (ax >= ay) & (ax >= az)
+    is_y = (~is_x) & (ay >= az)
+
+    def sel(c, a, b):
+        return torch.where(c, torch.full_like(x, a, dtype=torch.int32),
+                           torch.full_like(x, b, dtype=torch.int32))
+
+    face = torch.where(
+        is_x, sel(x >= 0, 0, 1),
+        torch.where(is_y, sel(y >= 0, 2, 3), sel(z >= 0, 4, 5)),
+    )
+    ma = torch.where(is_x, ax, torch.where(is_y, ay, az))
+    ma = torch.clamp_min(ma, eps)
+    sc = torch.where(
+        is_x,
+        torch.where(x >= 0, -z, z),
+        torch.where(is_y, x, torch.where(z >= 0, x, -x)),
+    )
+    tc = torch.where(
+        is_x, -y, torch.where(is_y, torch.where(y >= 0, z, -z), -y))
+    u = (sc / ma + 1.0) * 0.5
+    v = (tc / ma + 1.0) * 0.5
+    return face, torch.stack([u, v], -1)
+
+
+# ------------------------------------------------- neighborhood-packed atlas
+
+
+def build_packed_mip_atlas(images: np.ndarray) -> np.ndarray:
+    """Pack (N, S, S, C) images into (N, S, 2S, 4C) mip atlases where each
+    texel row also carries its +x, +y and +x+y neighbors (edge-clamped).
+
+    One row fetch then returns the full 2x2 bilinear footprint.
+    """
+    images = np.asarray(images, np.float32)
+    n, s, s2, c = images.shape
+    assert s == s2 and (s & (s - 1)) == 0
+
+    def neighborhood(level):  # (n, sz, sz, c) -> (n, sz, sz, 4c)
+        xp = np.minimum(np.arange(level.shape[2]) + 1, level.shape[2] - 1)
+        yp = np.minimum(np.arange(level.shape[1]) + 1, level.shape[1] - 1)
+        return np.concatenate(
+            [
+                level,
+                level[:, :, xp],
+                level[:, yp, :],
+                level[:, yp][:, :, xp],
+            ],
+            axis=-1,
+        )
+
+    atlas = np.zeros((n, s, 2 * s, 4 * c), np.float32)
+    level = images
+    size = s
+    lv = 0
+    while True:
+        off = mip_offset_x(lv, s)
+        atlas[:, :size, off : off + size] = neighborhood(level)
+        if size == 1:
+            break
+        level = level.reshape(n, size // 2, 2, size // 2, 2, c).mean(
+            axis=(2, 4)
+        )
+        size //= 2
+        lv += 1
+    return atlas
+
+
+def build_mip_pair_atlas(images: np.ndarray) -> np.ndarray:
+    """Pack (N, S, S, C) images into (N, S, 2S, 13C) mip atlases where each
+    texel row carries its full 2x2 bilinear footprint at its own level
+    PLUS the 3x3 footprint at the next level, anchored at
+    (x//2 - 1, y//2 - 1) - which covers the next level's 2x2 bilinear
+    window for every sub-texel position. A trilinear sample then needs
+    ONE row fetch per pixel.
+    """
+    images = np.asarray(images, np.float32)
+    n, s, s2_, c = images.shape
+    assert s == s2_ and (s & (s - 1)) == 0
+
+    levels = [images]
+    size = s
+    while size > 1:
+        size //= 2
+        levels.append(
+            levels[-1].reshape(n, size, 2, size, 2, c).mean(axis=(2, 4))
+        )
+
+    # In-place group writes + a thread pool over (level, group): the 13
+    # fancy-index expansions are independent slab writes into disjoint
+    # channel ranges.
+    from concurrent.futures import ThreadPoolExecutor
+
+    atlas = np.zeros((n, s, 2 * s, 13 * c), np.float32)
+
+    def write_group(lv, g):
+        level = levels[lv]
+        size = level.shape[1]
+        nxt = levels[min(lv + 1, len(levels) - 1)]
+        sn = nxt.shape[1]
+        x = np.arange(size)
+        y = np.arange(size)
+        off = mip_offset_x(lv, s)
+        dst = atlas[:, :size, off : off + size, g * c : (g + 1) * c]
+        if g == 0:
+            dst[:] = level
+        elif g == 1:
+            xp = np.minimum(x + 1, size - 1)
+            dst[:] = level[:, :, xp]
+        elif g == 2:
+            yp = np.minimum(y + 1, size - 1)
+            dst[:] = level[:, yp, :]
+        elif g == 3:
+            xp = np.minimum(x + 1, size - 1)
+            yp = np.minimum(y + 1, size - 1)
+            dst[:] = level[:, yp][:, :, xp]
+        else:
+            dy, dx = divmod(g - 4, 3)
+            gy = np.clip(y // 2 - 1 + dy, 0, sn - 1)
+            gx = np.clip(x // 2 - 1 + dx, 0, sn - 1)
+            dst[:] = nxt[:, gy][:, :, gx]
+
+    tasks = [(lv, g) for lv in range(len(levels)) for g in range(13)]
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        list(ex.map(lambda t: write_group(*t), tasks))
+    return atlas
+
+
+def build_quad_packed_atlas(images: np.ndarray) -> np.ndarray:
+    """2x2-packed atlas with 4 x-adjacent texel rows fused per table row
+    (shape (N, S, S/2, 16C)): 4x fewer table rows; the right base is
+    picked from the fetched row with two binary selects."""
+    packed = build_packed_mip_atlas(images)
+    n, s, w2, c4 = packed.shape
+    return packed.reshape(n, s, w2 // 4, 4 * c4)
+
+
+def _np_to_dtype(a: np.ndarray, bf16: bool) -> np.ndarray:
+    """Host-side cast: bfloat16 atlases stay float32 arrays holding
+    bf16-rounded values (see ``round_bf16``)."""
+    a = np.asarray(a, np.float32)
+    return round_bf16(a) if bf16 else a
+
+
+def build_mip_pair_atlas_host(images, bf16: bool = True) -> np.ndarray:
+    """Mip-pair atlas build on the host (NumPy); the caller uploads once."""
+    return _np_to_dtype(
+        build_mip_pair_atlas(np.asarray(images, np.float32)), bf16)
+
+
+def build_quad_packed_atlas_host(images, bf16: bool = True) -> np.ndarray:
+    """``build_quad_packed_atlas`` + cast, on the host."""
+    return _np_to_dtype(
+        build_quad_packed_atlas(np.asarray(images, np.float32)), bf16)
+
+
+def _gather_texel(atlas: torch.Tensor, layer, ix, iy):
+    """atlas (N, H, WA, C); integer indices broadcast to pixel shape,
+    flattened to a 1-D row gather."""
+    n, h, w, c = atlas.shape
+    flat = atlas.reshape(n * h * w, c)
+    idx = (layer * h + iy) * w + ix
+    return flat[idx.long()]
+
+
+def _quad_gather(atlas_q: torch.Tensor, layer, ix, iy, c4: int):
+    """Fetch the 2x2-packed group for global atlas column ``ix`` from a
+    quad-packed atlas: one row gather + 2-level binary select."""
+    n, h, wq, cq = atlas_q.shape
+    flat = atlas_q.reshape(n * h * wq, cq)
+    idx = (layer * h + iy) * wq + torch.div(ix, 4, rounding_mode="floor")
+    row = flat[idx.long()]
+    j = torch.remainder(ix, 4)
+    half = torch.where((j[..., None] & 2) == 0, row[..., : 2 * c4],
+                       row[..., 2 * c4:])
+    return torch.where((j[..., None] & 1) == 0, half[..., :c4],
+                       half[..., c4:])
+
+
+def sample_bilinear_level_packed(atlas4: torch.Tensor, layer, uv, level,
+                                 base: int, quad: bool = False):
+    """Bilinear tap from a neighborhood-packed atlas: ONE row fetch per
+    pixel (repeat across tile repeats, clamp at mip borders). Works on
+    2x2-packed (4C), mip-pair (13C) and - with ``quad=True`` - quad-packed
+    (4 x 4C) layouts; the level-l 2x2 occupies the first 4 groups of each.
+
+    This is the plain version that ``ops/window_tap.py``'s kernel is held
+    against (same index math, same lerp order)."""
+    c4 = atlas4.shape[-1] // 4 if quad else atlas4.shape[-1]
+    c = _packed_base_channels(c4)
+    dev = uv.device
+    lvl = torch.as_tensor(level, dtype=torch.int32, device=dev)
+    size_f = torch.tensor(float(base), dtype=torch.float32, device=dev) \
+        / torch.exp2(lvl.to(torch.float32))
+    size_f = torch.clamp_min(torch.floor(size_f + 0.5), 1.0)
+    offs = _mip_offsets_table(base, dev)[
+        torch.clamp(lvl, 0, mip_count(base) - 1).long()]
+
+    uw = uv[..., 0] - torch.floor(uv[..., 0])
+    vw = uv[..., 1] - torch.floor(uv[..., 1])
+    u = uw * size_f - 0.5
+    v = vw * size_f - 0.5
+    u0 = torch.floor(u)
+    v0 = torch.floor(v)
+    size_i = size_f.to(torch.int32)
+    x0 = torch.minimum(torch.clamp_min(u0.to(torch.int32), 0), size_i - 1)
+    y0 = torch.minimum(torch.clamp_min(v0.to(torch.int32), 0), size_i - 1)
+    fu = torch.clamp(u - x0.to(torch.float32), 0.0, 1.0)[..., None]
+    fv = torch.clamp(v - y0.to(torch.float32), 0.0, 1.0)[..., None]
+
+    ox = offs.to(torch.int32)
+    layer = torch.as_tensor(layer, dtype=torch.int32, device=dev) \
+        .broadcast_to(x0.shape)
+    if quad:
+        texel = _quad_gather(atlas4, layer, x0 + ox, y0, c4)  # (..., 4c)
+    else:
+        texel = _gather_texel(atlas4, layer, x0 + ox, y0)  # (..., 4c)
+    t00 = texel[..., 0:c].to(torch.float32)
+    t10 = texel[..., c : 2 * c].to(torch.float32)
+    t01 = texel[..., 2 * c : 3 * c].to(torch.float32)
+    t11 = texel[..., 3 * c : 4 * c].to(torch.float32)
+    top = t00 * (1 - fu) + t10 * fu
+    bot = t01 * (1 - fu) + t11 * fu
+    return top * (1 - fv) + bot * fv
