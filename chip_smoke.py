@@ -8,33 +8,40 @@ per species, 65 rocks, 16 point lights, tiles 64x32) through
 ``render_frame``. Every kernel is replayed on the inputs the frame gave it
 and held against its plain PyTorch version on the card; one frame at
 256x256 rendered through the kernels is held against the same frame
-rendered through the plain versions. Each phase prints one JSON line; the
-last line is ``{"ok": true, "device": {...}}``. Any failure raises: the
+rendered through the plain versions, and the engine shell presents two
+1080p frames. Each phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failure raises: the
 script exits non-zero and prints no result. It needs a CUDA device, nvcc,
 and nothing else beyond PyTorch and NumPy.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import shutil
 import statistics
 import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# One card is used: unless the caller chose the cards, only the first is
+# made visible, and the last line's ``count`` is that one card.
+os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
 
-from zeldaengine_tpu_torch import EngineConfig, TEST_CONFIG
-from zeldaengine_tpu_torch import ops
-from zeldaengine_tpu_torch.ops import _build
-from zeldaengine_tpu_torch.ops import pcf_cuda, rasterize as rast
-from zeldaengine_tpu_torch.ops import rasterize_cuda as rc
-from zeldaengine_tpu_torch.ops import window_tap
-from zeldaengine_tpu_torch.passes import build_view_state, render_frame
-from zeldaengine_tpu_torch.passes.frame import render_rows
-from zeldaengine_tpu_torch.scene import build_demo_scene
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from zeldaengine_tpu_torch import EngineConfig, TEST_CONFIG  # noqa: E402
+from zeldaengine_tpu_torch import ops  # noqa: E402
+from zeldaengine_tpu_torch.engine import Engine  # noqa: E402
+from zeldaengine_tpu_torch.ops import _build  # noqa: E402
+from zeldaengine_tpu_torch.ops import pcf_cuda, rasterize as rast  # noqa: E402
+from zeldaengine_tpu_torch.ops import rasterize_cuda as rc  # noqa: E402
+from zeldaengine_tpu_torch.ops import window_tap  # noqa: E402
+from zeldaengine_tpu_torch.passes import build_view_state, render_frame  # noqa: E402
+from zeldaengine_tpu_torch.passes import frame as frame_graph  # noqa: E402
+from zeldaengine_tpu_torch.scene import build_demo_scene  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the roofline the
 # kernels' bounds are stated against.
@@ -44,6 +51,13 @@ PEAK_FP32_PER_S = 67e12
 # 2 add each), depth (3 mul + 2 add), edge sum (2), edge min (2), five
 # compares and the select.
 OPS_PER_TEST = 26
+# The names under which the frame graph calls the kernels' wrappers.
+FRAME_CALLS = {
+    "pair_raster": "rasterize_pairs",
+    "pair_raster_fused": "rasterize_pairs_fused",
+    "pcf_taps": "compute_pcf_vmem",
+    "bilinear_tap": "sample_base_window",
+}
 
 KERNELS = {
     "pair_raster": dict(
@@ -126,31 +140,74 @@ def phase_build() -> None:
          flags=" ".join(_build.NVCC_FLAGS))
 
 
-def walked_tests(pairs: rc.PairedTriangles, height, width, tile_h, tile_w):
-    """(pixel, pair) tests this pair stream asks of the rasterizer: every
-    tile tests each pair of its dense, supertile and global range against
-    each of its pixels."""
+@contextlib.contextmanager
+def recorded_calls(calls: dict):
+    """While active, every call the frame graph makes to a kernel's wrapper
+    or to ``build_pairs`` is noted in ``calls`` (references, not copies)
+    and passed on unchanged: ``calls[kernel] = (args, kwargs)`` without
+    the ``backend`` keyword, ``calls["build_pairs"] = [(setup, pairs), ...]``
+    in call order (shadow pass first, GBuffer second)."""
+    saved = {}
+
+    def shim(name, key):
+        fn = saved[name] = getattr(frame_graph, name)
+
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            if key == "build_pairs":
+                calls.setdefault(key, []).append((args[0], out))
+            else:
+                calls[key] = (args, {k: v for k, v in kw.items()
+                                     if k != "backend"})
+            return out
+        setattr(frame_graph, name, call)
+
+    shim("build_pairs", "build_pairs")
+    for key, name in FRAME_CALLS.items():
+        shim(name, key)
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(frame_graph, name, fn)
+
+
+def needed_tests(pairs: rc.PairedTriangles, setup, height, width, tile_h,
+                 tile_w):
+    """(pixel, pair) tests the function needs on this pair stream, and the
+    tests the kernel makes. A pair can only cover pixels whose centre lies
+    inside its triangle's bbox, so for every (tile, pair) of the dense,
+    supertile and global ranges only the pixel centres of bbox & tile are
+    counted; the kernel tests all tile_h * tile_w pixels of the tile."""
     n_ty, n_tx = height // tile_h, width // tile_w
-    sh, sw = rc._super_h(tile_h), rc._super_w(tile_w)
-    n_sx = -(-n_tx // sw)
-    t = torch.arange(n_ty * n_tx, device=pairs.starts.device)
-    st = (t // n_tx // sh) * n_sx + (t % n_tx) // sw
-    per_tile = ((pairs.ends - pairs.starts).long()
-                + (pairs.sends - pairs.sstarts).long()[st]
-                + (pairs.gbounds[1] - pairs.gbounds[0]).long())
-    return int(per_tile.sum()) * tile_h * tile_w
+    tile, pair = rc._tile_pair_list(pairs, n_ty, n_tx, tile_h, tile_w)
+    bbox = setup.bbox[pairs.pair_tri.long()[pair]]
+
+    def centres(lo, hi, first, size):
+        # pixel centres i + 0.5 in [lo, hi], clipped to [first, first+size)
+        i0 = torch.maximum(torch.ceil(lo - 0.5), first)
+        i1 = torch.minimum(torch.floor(hi - 0.5), first + (size - 1))
+        return (i1 - i0 + 1).clamp_min(0)
+
+    nx = centres(bbox[:, 0], bbox[:, 2], (tile % n_tx).float() * tile_w,
+                 tile_w)
+    ny = centres(bbox[:, 1], bbox[:, 3], (tile // n_tx).float() * tile_h,
+                 tile_h)
+    return int((nx * ny).double().sum()), int(tile.numel()) * tile_h * tile_w
 
 
-def raster_bound(pairs, height, width, kw, out_words: int) -> dict:
-    tests = walked_tests(pairs, height, width, kw["tile_h"], kw["tile_w"])
+def raster_bound(pairs, setup, height, width, kw, out_words: int) -> dict:
+    tests, kernel_tests = needed_tests(pairs, setup, height, width,
+                                       kw["tile_h"], kw["tile_w"])
     live = int(pairs.gbounds[1])
     n_bytes = (live * pairs.records.shape[1] * 4 + live * 4
                + (pairs.starts.numel() * 2 + pairs.sstarts.numel() * 2 + 2) * 4
                + height * width * 4 * out_words)
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = tests * OPS_PER_TEST / PEAK_FP32_PER_S * 1e3
-    emit("bound", pixel_pair_tests=tests, live_pairs=live, bytes=n_bytes,
-         bytes_ms=t_bytes, operations_ms=t_ops)
+    emit("bound", pixel_pair_tests_in_bbox=tests,
+         pixel_pair_tests_of_the_kernel=kernel_tests, live_pairs=live,
+         bytes=n_bytes, bytes_ms=t_bytes, operations_ms=t_ops)
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -228,6 +285,8 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
 
     # ---- K1 pair_raster
     (pairs, ph, pw), kw = captured["pair_raster"]
+    (setup_sh, pairs_sh), (setup_gb, pairs_gb) = captured["build_pairs"]
+    check(pairs_sh is pairs, "shadow pairs are not the first build_pairs call")
     main = run("pair_raster", "frame: shadow map, depth_only", rc.rasterize_pairs,
                (pairs, ph, pw), kw, lambda k, p: compare_raster(k, p, False))
     kw_ids = dict(kw, depth_only=False)
@@ -252,13 +311,14 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     rows.append(dict(name="pair_raster", route="cuda",
                      **KERNELS["pair_raster"],
                      launches=frame_launches["pair_raster"],
-                     max_abs_err=main["max_abs_err"], ms=ms,
+                     max_abs_err=main["max_abs_err"], ms=ms, kernel_ms=ms,
                      plain_ms=plain_ms,
-                     **raster_bound(pairs, ph, pw, kw, out_words=1),
+                     **raster_bound(pairs, setup_sh, ph, pw, kw, out_words=1),
                      library_ms=None))
 
     # ---- K2 pair_raster_fused
     (fpairs, fh, fw), fkw = captured["pair_raster_fused"]
+    check(pairs_gb is fpairs, "GBuffer pairs are not the second build_pairs call")
     cmp_fused = lambda k, p: compare_raster(k, p, True)  # noqa: E731
     fmain = run("pair_raster_fused", "frame: GBuffer", rc.rasterize_pairs_fused,
                 (fpairs, fh, fw), fkw, cmp_fused)
@@ -280,8 +340,9 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
                      **KERNELS["pair_raster_fused"],
                      launches=frame_launches["pair_raster_fused"],
                      max_abs_err=fmain["max_abs_err"], ms=ms,
+                     kernel_ms=ms,
                      plain_ms=plain_ms,
-                     **raster_bound(fpairs, fh, fw, fkw,
+                     **raster_bound(fpairs, setup_gb, fh, fw, fkw,
                                     out_words=2 + rc.ATTR_CH),
                      library_ms=None))
 
@@ -310,7 +371,7 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     n_px = sc.shape[0] * sc.shape[1]
     rows.append(dict(name="pcf_taps", route="cuda", **KERNELS["pcf_taps"],
                      launches=frame_launches["pcf_taps"],
-                     max_abs_err=pmain["max_abs_err"], ms=ms,
+                     max_abs_err=pmain["max_abs_err"], ms=ms, kernel_ms=ms,
                      plain_ms=plain_ms,
                      **bytes_bound(n_px * 20 + sm.numel() * 4),
                      library_ms=None))
@@ -338,7 +399,7 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     rows.append(dict(name="bilinear_tap", route="cuda",
                      **KERNELS["bilinear_tap"],
                      launches=frame_launches["bilinear_tap"],
-                     max_abs_err=tmain["max_abs_err"], ms=ms,
+                     max_abs_err=tmain["max_abs_err"], ms=ms, kernel_ms=ms,
                      plain_ms=plain_ms,
                      **bytes_bound(n_px * (8 + 1 + 4 * planes.shape[0])
                                    + planes.numel() * 4),
@@ -398,10 +459,10 @@ def phase_frame():
     check(float(sf.min()) < float(sf.max()), "shadow factor is constant")
     check(float(image.std()) > 0.02, "image is flat")
 
-    # One more frame with the kernels' arguments captured, for phase 3.
+    # One more frame with the kernels' arguments noted, for phase 3.
     view = build_view_state(world, config, time=0.5, roll_light=0.6)
-    captured = {}
-    render_rows(scene, view, meta, config, capture=captured)
+    with recorded_calls({}) as captured:
+        render_frame(scene, view, meta, config)
     torch.cuda.synchronize()
     emit("frame", frame_ms=statistics.median(frame_ms),
          frame_ms_all=frame_ms, host_frame_ms=statistics.median(host_ms),
@@ -468,6 +529,30 @@ def phase_frame_vs_plain() -> None:
          covered_fraction=float((aux_k["tri_id"] >= 0).float().mean()))
 
 
+def phase_engine() -> None:
+    """The engine shell, the entry point behind ``python -m
+    zeldaengine_tpu_torch.engine``: build the default demo world at 1080p,
+    tick twice, check what it presents and that every tick went through
+    the four kernels once."""
+    engine = Engine(EngineConfig(width=1920, height=1080, frames_in_flight=1,
+                                 present_mode="fifo",
+                                 point_light_kernel="unroll"))
+    ops.reset_kernel_launch_counts()
+    frames = [engine.tick() for _ in range(2)]
+    launches = ops.kernel_launch_counts()
+    for name, count in launches.items():
+        check(count == 2, f"engine: kernel {name} launched {count} times "
+                          "in 2 ticks")
+    for img in frames:
+        check(img.dtype == np.uint8 and img.shape == (1080, 1920, 3),
+              f"engine presented {img.dtype} {img.shape}")
+    check(float(frames[-1].std()) > 5.0, "engine frame is flat")
+    check(bool((frames[0] != frames[1]).any()), "the animation stands still")
+    emit("engine", ticks=2, frame_ms=engine.stats.frame_ms,
+         triangles=engine.stats.triangles, launches=launches,
+         mean_level=float(frames[-1].mean()))
+
+
 def main() -> None:
     t0 = time.time()
     info = phase_device()
@@ -475,6 +560,7 @@ def main() -> None:
     captured, launches = phase_frame()
     rows = phase_kernels(captured, launches)
     phase_frame_vs_plain()
+    phase_engine()
     emit("done", seconds=round(time.time() - t0, 1))
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

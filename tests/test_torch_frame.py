@@ -1,9 +1,10 @@
 """The slice as a whole: the port's frame (plain versions, on the CPU)
 against the JAX package's frame (its CPU path) on the same carried-across
-scene and view, and every unported configuration value raising."""
+scene and view. (What the slice refuses is in test_torch_unported.py.)"""
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -46,30 +47,77 @@ def default_cfg():
     return _both()
 
 
-def test_frame_meets_golden_criterion_with_a_compare_bias():
-    """With a compare-time shadow bias both frames agree under the golden
-    criterion. (Without one, see the next test.)"""
-    jimg, jaux, scene, view, meta, cfg = _both(shadow_bias=4e-3)
+@pytest.fixture(scope="module")
+def reference_op_by_op(default_cfg):
+    """The JAX package's frame of the default configuration with
+    ``jax.disable_jit()``: the same program, run one primitive at a time,
+    so that XLA cannot fuse a multiply into the add that follows it."""
+    jcfg = JCFG.replace(point_light_kernel="unroll")
+    jscene, jmeta, jworld = j_build(jcfg, grass=GRASS, rocks=ROCKS)
+    jview = j_view(jworld, jcfg, **VIEW)
+    with jax.disable_jit():
+        img, aux = j_render(jscene, jview, jmeta, jcfg)
+    return np.asarray(img), {k: np.asarray(aux[k]) for k in
+                             ("shadowmap", "depth", "gbuffer_depth",
+                              "tri_id")}
+
+
+def _off(a, b):
+    return float((np.abs(np.asarray(a) - np.asarray(b)) > 4 / 255).mean())
+
+
+def test_frame_meets_golden_criterion_against_the_reference_op_by_op(
+        default_cfg, reference_op_by_op):
+    """Default configuration (``shadow_bias=0``), same carried-across scene
+    and view: the port's frame meets the golden criterion against the JAX
+    package's frame when that runs without fused multiply-adds, which is
+    the arithmetic the port has on every device (its kernels are compiled
+    without contraction)."""
+    _, _, scene, view, meta, cfg = default_cfg
+    nimg, naux = reference_op_by_op
     img, aux = render_frame(scene, view, meta, cfg)
     assert tuple(img.shape) == (128, 128, 3) and img.dtype == torch.float32
     assert bool(torch.isfinite(img).all())
+    assert_golden(img.numpy(), nimg)
+    # Shadow map at every texel, depth at every pixel both see the same
+    # triangle in: 5e-5 (measured: 9e-7).
+    np.testing.assert_allclose(aux["shadowmap"].numpy(), naux["shadowmap"],
+                               atol=5e-5, rtol=0)
+    same = aux["tri_id"].numpy() == naux["tri_id"]
+    assert same.mean() > 0.999
+    for key in ("gbuffer_depth", "depth"):
+        np.testing.assert_allclose(aux[key].numpy()[same], naux[key][same],
+                                   atol=5e-5, rtol=0, err_msg=key)
+
+
+def test_frame_meets_golden_criterion_with_a_compare_bias():
+    """Against the JAX package's frame as it runs by default (jitted), both
+    frames agree under the golden criterion once a compare-time shadow
+    bias is set. (Without one they do not: see the next test.)"""
+    jimg, jaux, scene, view, meta, cfg = _both(shadow_bias=4e-3)
+    img, aux = render_frame(scene, view, meta, cfg)
     assert_golden(img.numpy(), jimg)
     covered = np.asarray(jaux["tri_id"]) >= 0
     assert 0.3 < covered.mean() < 0.99
     np.testing.assert_array_equal(aux["tri_id"].numpy() >= 0, covered)
 
 
-def test_frame_default_config_differs_only_through_shadow_noise(default_cfg):
-    """At the default ``shadow_bias=0`` the PCF compares ``tap < z`` with
-    no margin on surfaces facing the light, and the shadow depth of
-    triangles with a small determinant carries ~1e-3 of fp32 noise that
-    depends on how the compiler contracts multiply-adds (XLA on the CPU
-    does, the port never does). A few percent of the lit values then land
-    one PCF tap (3.6 %) apart in EITHER package. Given the JAX package's
-    shadow map the port's frame meets the golden criterion, so the shadow
-    noise is the only difference; with its own shadow map the median is
-    still <= 1/255 and fewer than 6 % of values are off by > 4/255."""
+def test_frame_default_config_differs_only_through_shadow_noise(
+        default_cfg, reference_op_by_op):
+    """Against the JITTED reference frame at the default ``shadow_bias=0``
+    the golden criterion is NOT met: about 3 % of values are off by more
+    than 4/255 where it allows 1 %. The reference differs from ITSELF by
+    the same amount: jitted, XLA contracts multiply-adds (shown bit for
+    bit in test_torch_rasterize.py); run op by op it does not, its shadow
+    depth moves by 1e-5..1e-3 on the 1 % of texels that lie on
+    small-determinant triangles, and the PCF compare ``tap < z`` has no
+    margin on surfaces facing the light, so single taps (3.6 % of a lit
+    value) flip. The port lands on the op-by-op side (previous test).
+    Given the jitted reference's shadow map the port's frame meets the
+    criterion against the jitted frame, so the shadow map is the whole
+    difference."""
     jimg, jaux, scene, view, meta, cfg = default_cfg
+    nimg, _ = reference_op_by_op
     same_map, _ = render_rows(
         scene, view, meta, cfg,
         shadowmap_override=torch.from_numpy(np.array(jaux["shadowmap"])))
@@ -77,18 +125,22 @@ def test_frame_default_config_differs_only_through_shadow_noise(default_cfg):
     img, _ = render_frame(scene, view, meta, cfg)
     diff = np.abs(img.numpy() - jimg)
     assert float(np.median(diff)) <= 1 / 255
-    assert float((diff > 4 / 255).mean()) < 0.06
+    port_off, self_off = _off(img.numpy(), jimg), _off(nimg, jimg)
+    assert 0.01 < self_off < 0.06   # the reference fails against itself
+    assert abs(port_off - self_off) < 0.005
+    assert port_off < 0.06
 
 
 def test_frame_aux_buffers(default_cfg):
+    """Against the jitted reference's buffers: equal within 5e-5 except on
+    small-determinant triangles (zc ~ 1/det up to 3e4), where contraction
+    moves depth by up to a few 1e-3; the op-by-op reference is held at
+    every texel in the test above."""
     jimg, jaux, scene, view, meta, cfg = default_cfg
     _, aux = render_frame(scene, view, meta, cfg)
     same = aux["tri_id"].numpy() == np.asarray(jaux["tri_id"])
     assert same.mean() > 0.99  # ids equal off depth ties / edge pixels
     covered = (np.asarray(jaux["tri_id"]) >= 0) & same
-    # Depth where both see the same triangle: 5e-5 (XLA contracts FMAs in
-    # sum e_i * zc_i) on >= 99 % of pixels; the rest lie on near-camera
-    # triangles whose zc ~ 1/det is large (one ulp of zc ~ 1e-3 of depth).
     for key in ("gbuffer_depth", "depth"):
         dd = np.abs(aux[key].numpy() - np.asarray(jaux[key]))[covered]
         assert (dd <= 5e-5).mean() >= 0.99, key
@@ -98,8 +150,6 @@ def test_frame_aux_buffers(default_cfg):
     sky = (np.asarray(jaux["tri_id"]) < 0) & same
     np.testing.assert_allclose(aux["depth"].numpy()[sky],
                                np.asarray(jaux["depth"])[sky], atol=1e-4)
-    # Shadow map: 5e-5 on >= 98 % of texels; the rest belong to triangles
-    # whose zc ~ 1/det reaches 3e4, where one ulp of zc is 2e-3 of depth.
     sd = np.abs(aux["shadowmap"].numpy() - np.asarray(jaux["shadowmap"]))
     assert (sd <= 5e-5).mean() >= 0.98
     assert np.median(sd) == 0.0
@@ -168,63 +218,3 @@ def test_golden_scene_is_outside_the_slice():
         render_frame(scene, view, meta, cfg)
     assert "forward pass" in str(err.value)
     assert "textured materials" in str(err.value)
-
-
-_UNPORTED = [
-    (dict(point_light_kernel="auto"), "K5"),
-    (dict(point_light_kernel="pallas"), "K5"),
-    (dict(env_merge=True), "envtap"),
-    (dict(wireframe=True), "wireframe"),
-    (dict(skydome_mode="mesh"), "skydome_mesh"),
-    (dict(enable_background=True), "background"),
-    (dict(validation=True), "validation"),
-    (dict(compact_tris=512), "compact_setup"),
-    (dict(compact_tris_shadow=512), "compact_setup"),
-    (dict(pair_align=True), "align"),
-    (dict(raster_early_out=True), "early-out"),
-    (dict(reflection_half=True), "half"),
-    (dict(ablate="nopcf"), "ablations"),
-    (dict(pcf_backend="packed"), "K6-K8"),
-    (dict(pcf_backend="pallas"), "K6-K8"),
-    (dict(pcf_backend="window_roll"), "K6-K8"),
-    (dict(pcf_backend="half"), "K6-K8"),
-]
-
-
-@pytest.mark.parametrize("kw,item", _UNPORTED,
-                         ids=[str(k) for k, _ in _UNPORTED])
-def test_unported_config_raises(default_cfg, kw, item):
-    _, _, scene, view, meta, cfg = default_cfg
-    with pytest.raises(NotImplementedError) as err:
-        render_frame(scene, view, meta, cfg.replace(**kw))
-    assert "ROADMAP.md" in str(err.value) and item in str(err.value)
-
-
-@pytest.mark.parametrize("case", [
-    "debug_view", "band", "has_forward", "has_meshlets", "tex_channels",
-    "no_cube_const", "tiled_lights"])
-def test_unported_view_scene_and_band_raise(default_cfg, case):
-    _, _, scene, view, meta, cfg = default_cfg
-    kw = {}
-    if case == "debug_view":
-        view = view._replace(debug_view=torch.tensor(4, dtype=torch.int32))
-    elif case == "band":
-        kw = dict(y0=0, rows=64, full_frame=False)
-    elif case == "no_cube_const":
-        scene = scene._replace(cube_const=None)
-    elif case == "tiled_lights":
-        view = view._replace(point_lights=torch.zeros((128, 4, 4)))
-    else:
-        value = {"has_forward": True, "has_meshlets": True,
-                 "tex_channels": (0, 1, 2)}[case]
-        meta = dataclasses.replace(meta, **{case: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        render_rows(scene, view, meta, cfg, **kw)
-
-
-def test_bad_raster_value_and_cuda_on_cpu_raise(default_cfg):
-    _, _, scene, view, meta, cfg = default_cfg
-    with pytest.raises(ValueError, match="raster"):
-        render_frame(scene, view, meta, cfg.replace(raster="pallas"))
-    with pytest.raises(RuntimeError, match="card"):
-        render_frame(scene, view, meta, cfg.replace(raster="cuda"))

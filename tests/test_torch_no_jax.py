@@ -1,10 +1,13 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points default to the card and raise without one."""
+"""The port stands alone: its sources import neither JAX nor the JAX
+package. (What its entry points do without a card is in
+test_torch_entry_points.py.)
+
+Every tests/test_torch_*.py file holds at most seven tests: pytest-xdist
+hands out files in order of their number of tests, and the port's files
+must queue behind the JAX package's long-running ones, not ahead of them."""
 
 import ast
 import os
-import subprocess
-import sys
 
 import pytest
 
@@ -35,92 +38,30 @@ def test_package_layout_is_there():
             "bilinear_tap.cu"} <= csrc
 
 
-@pytest.mark.parametrize("path", _py_files(),
-                         ids=lambda p: os.path.relpath(p, ROOT))
-def test_source_imports_no_jax(path):
-    with open(path) as f:
-        tree = ast.parse(f.read(), path)
-    for node in ast.walk(tree):
-        names = []
-        if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom):
-            names = [node.module or ""]
-        for name in names:
-            top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "ml_dtypes",
-                               "zeldaengine_tpu"), (path, name)
+def _groups():
+    """The scanned sources by directory (one test case each)."""
+    groups = {}
+    for path in _py_files():
+        rel = os.path.relpath(path, PKG)
+        key = os.path.dirname(rel) if not rel.startswith("..") else ""
+        groups.setdefault(key or "top_level_and_chip_smoke", []).append(path)
+    return groups
 
 
-def _run(code):
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
-
-
-def test_importing_the_port_loads_no_jax():
-    code = (
-        "import sys, pkgutil, importlib\n"
-        "import zeldaengine_tpu_torch as pkg\n"
-        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'zeldaengine_tpu')]\n"
-        "assert not bad, bad\n"
-        "import torch\n"
-        "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
-        "print('ok')\n"
-    )
-    res = _run(code)
-    assert res.returncode == 0, res.stderr
-    assert res.stdout.strip().endswith("ok")
-
-
-def test_entry_points_default_to_the_card_and_raise_without_one():
-    import torch
-
-    from zeldaengine_tpu_torch import TEST_CONFIG
-    from zeldaengine_tpu_torch.convert import scene_from_numpy
-    from zeldaengine_tpu_torch.engine import Engine
-    from zeldaengine_tpu_torch.passes import build_view_state
-    from zeldaengine_tpu_torch.scene import build_demo_scene, make_demo_world
-
-    if torch.cuda.is_available():
-        pytest.skip("a card is present: the defaults run on it")
-    with pytest.raises(RuntimeError, match="cuda"):
-        build_demo_scene(TEST_CONFIG, grass=2, rocks=1)
-    with pytest.raises(RuntimeError, match="cuda"):
-        build_view_state(make_demo_world(), TEST_CONFIG)
-    with pytest.raises(RuntimeError, match="cuda"):
-        Engine(TEST_CONFIG)
-    with pytest.raises(RuntimeError, match="cuda"):
-        scene_from_numpy({})
-
-
-def test_engine_cli_without_a_card_fails_and_chip_smoke_fails():
-    import torch
-
-    if torch.cuda.is_available():
-        pytest.skip("a card is present")
-    res = _run("from zeldaengine_tpu_torch.engine import main; "
-               "main(['--frames', '1', '--width', '128', '--height', '128'])")
-    assert res.returncode != 0 and "cuda" in res.stderr
-    smoke = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
-                           capture_output=True, text=True, timeout=300)
-    assert smoke.returncode != 0
-    assert '"ok": true' not in smoke.stdout
-
-
-def test_engine_renders_on_the_cpu_when_asked():
-    from zeldaengine_tpu_torch import TEST_CONFIG
-    from zeldaengine_tpu_torch.engine import Engine
-    from zeldaengine_tpu_torch.scene import demo_world
-
-    cfg = TEST_CONFIG.replace(frames_in_flight=1, present_mode="fifo",
-                              point_light_kernel="unroll")
-    eng = Engine(cfg, world=demo_world(grass=20, rocks=2), device="cpu")
-    img = eng.tick()
-    assert img.shape == (128, 128, 3) and img.dtype.name == "uint8"
-    assert eng.stats.frame_index == 1 and eng.stats.frame_ms > 0
-    assert img.std() > 1
+@pytest.mark.parametrize("group", sorted(_groups()))
+def test_source_imports_no_jax(group):
+    paths = _groups()[group]
+    assert paths
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "flax", "ml_dtypes",
+                                   "zeldaengine_tpu"), (path, name)

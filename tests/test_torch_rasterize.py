@@ -1,55 +1,20 @@
 """Port of the rasterizer held against the JAX package on the same NumPy
-inputs: triangle_setup, build_pairs (equal bins and pair order), and the
-plain version of kernel pair_raster against the Pallas kernel in interpret
-mode. The CUDA kernel itself is held against this plain version on the
-card by chip_smoke.py."""
+inputs: triangle_setup and the brute-force rasterizers. (build_pairs is in
+test_torch_build_pairs.py, the pair rasterizer in
+test_torch_pair_raster.py.)"""
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
 
 from zeldaengine_tpu.ops import rasterize as jr
-from zeldaengine_tpu.ops import rasterize_pallas as jp
-from zeldaengine_tpu_torch.convert import pairs_from_numpy, setup_from_numpy
+from zeldaengine_tpu_torch.convert import setup_from_numpy
 from zeldaengine_tpu_torch.ops import rasterize as tr
-from zeldaengine_tpu_torch.ops import rasterize_cuda as tp
 
 from _torch_compare import to_numpy_leaves
+from _torch_raster_inputs import H, W, setups as _setups
 
 torch.set_num_threads(1)
-
-H, W = 64, 128
-
-
-def _random_clip(seed, n=300):
-    # Clip-space triangles with positive w, spread over the viewport.
-    rng = np.random.default_rng(seed)
-    centers = rng.uniform(-1.0, 1.0, (n, 1, 3)).astype(np.float32)
-    offs = rng.uniform(-0.15, 0.15, (n, 3, 3)).astype(np.float32)
-    pos = centers + offs
-    w = rng.uniform(0.5, 3.0, (n, 3, 1)).astype(np.float32)
-    z = rng.uniform(0.1, 0.9, (n, 1, 1)).astype(np.float32) * w
-    clip = np.concatenate([pos[..., :2] * w, z * np.ones((1, 3, 1)), w], -1)
-    # A few big triangles (supertile / global bucket) and one behind the
-    # camera.
-    clip[:4, :, :2] *= 6.0
-    clip[4, :, 3] = -1.0
-    return clip.astype(np.float32)
-
-
-def _setups(seed, n=300, **kw):
-    clip = _random_clip(seed, n)
-    two = np.random.default_rng(seed + 1).random(n) < 0.5
-    valid = np.random.default_rng(seed + 2).random(n) < 0.9
-    js = jr.triangle_setup(jnp.asarray(clip), W, H,
-                           two_sided=jnp.asarray(two),
-                           valid_mask=jnp.asarray(valid), **kw)
-    ts = tr.triangle_setup(torch.from_numpy(clip), W, H,
-                           two_sided=torch.from_numpy(two),
-                           valid_mask=torch.from_numpy(valid), **kw)
-    return js, ts
-
 
 @pytest.mark.parametrize("depth_bias", [None, (1.25, 7.5)])
 def test_triangle_setup_matches_jax(depth_bias):
@@ -60,9 +25,54 @@ def test_triangle_setup_matches_jax(depth_bias):
         np.testing.assert_allclose(
             getattr(ts, name).numpy(), np.asarray(getattr(js, name)),
             atol=1e-6, rtol=1e-6, err_msg=name)
-    # zc = z / det is large where det is small: relative 1e-6.
+    # zc = z / det is large where det is small: relative 2e-6. With the
+    # depth bias, zc also carries slope = max_j |sum_i zc_i * edge[i, j]|,
+    # a sum that cancels (zc ~ 1/det, the gradient is small): the port adds
+    # it in plain fp32 index order, XLA contracts it into multiply-adds,
+    # and the biased zc then differs by up to 4.5e-6 relative on this
+    # input. Held to 1e-5.
+    rtol = 2e-6 if depth_bias is None else 1e-5
     np.testing.assert_allclose(ts.zc.numpy(), np.asarray(js.zc),
-                               rtol=2e-6, atol=1e-6)
+                               rtol=rtol, atol=1e-6)
+
+
+def test_reference_cpu_depth_is_the_fma_contracted_form():
+    """Why depths are held to 5e-5 and not to equality: on the CPU, XLA
+    fuses ``_coverage_chunk`` and contracts its multiply-adds. Evaluated in
+    NumPy on the same setup, exactly one contraction pattern reproduces
+    the JAX depth bit for bit at every covered pixel:
+    e_i = fma(a_i, px, b_i*py) + c_i, depth = fma(e2, z2, fma(e0, z0,
+    e1*z1)); the same formula with every product and sum rounded
+    separately (what the port computes, in its plain versions and in its
+    kernels) equals it at fewer than half of them."""
+    js, _ = _setups(3, n=120)
+    jd, jt = jr.rasterize_visibility(js, H, W, chunk=64)
+    jd, jt = np.asarray(jd), np.asarray(jt)
+    cov = jt >= 0
+    assert cov.mean() > 0.05
+    t = np.maximum(jt, 0)
+    edge, zc = np.asarray(js.edge)[t], np.asarray(js.zc)[t]   # (H, W, 3, ..)
+    py, px = np.meshgrid(np.arange(H, dtype=np.float32) + 0.5,
+                         np.arange(W, dtype=np.float32) + 0.5, indexing="ij")
+    f32, f64 = np.float32, np.float64
+
+    def fma(a, b, c):  # one rounding (the f32 product is exact in f64)
+        return (a.astype(f64) * b.astype(f64) + c.astype(f64)).astype(f32)
+
+    a, b, c = (edge[..., j] for j in range(3))                # (H, W, 3)
+    e_fma = fma(a, px[..., None], b * py[..., None]) + c
+    d_fma = fma(e_fma[..., 2], zc[..., 2],
+                fma(e_fma[..., 0], zc[..., 0], e_fma[..., 1] * zc[..., 1]))
+    e_sep = a * px[..., None] + b * py[..., None] + c
+    d_sep = (e_sep[..., 0] * zc[..., 0] + e_sep[..., 1] * zc[..., 1]
+             + e_sep[..., 2] * zc[..., 2])
+    assert d_sep.dtype == f32
+    np.testing.assert_array_equal(d_fma[cov], jd[cov])
+    assert (d_sep[cov] == jd[cov]).mean() < 0.5
+    # ... and the separately rounded form is what the port computes.
+    td, _ = tr.rasterize_visibility(setup_from_numpy(to_numpy_leaves(js),
+                                                     "cpu"), H, W, chunk=64)
+    np.testing.assert_array_equal(td.numpy()[cov], d_sep[cov])
 
 
 @pytest.mark.parametrize("chunk", [64])
@@ -84,129 +94,3 @@ def test_brute_force_rasterizers_match_jax(chunk):
     np.testing.assert_array_equal(tc.numpy(), cov)
     np.testing.assert_allclose(tb.numpy()[cov], np.asarray(jb)[cov],
                                atol=2e-5)
-
-
-_BIN_CASES = [
-    # tile_h, tile_w, expand, sort_z, ysort, max_pairs, center_cull
-    (8, 128, 8, False, None, None, False),
-    (8, 128, 2, False, None, None, False),
-    (16, 32, 8, True, None, None, False),
-    (16, 32, 2, True, 8, None, False),
-    (64, 32, 8, True, 8, None, False),
-    (64, 32, 4, True, 8, 256, False),
-    (8, 128, 8, True, 8, 128, True),
-]
-
-
-@pytest.mark.parametrize(
-    "tile_h,tile_w,expand,sort_z,ysort,max_pairs,center_cull", _BIN_CASES)
-def test_build_pairs_equal_to_jax(tile_h, tile_w, expand, sort_z, ysort,
-                                  max_pairs, center_cull):
-    """Bins, pair order and the overflow count are EQUAL (integers), the
-    records equal bit for bit: same int32 key bit budget, stable sort."""
-    js, _ = _setups(5)
-    ts = setup_from_numpy(to_numpy_leaves(js), "cpu")
-    extra = np.random.default_rng(9).random((300, 5)).astype(np.float32)
-    kw = dict(expand=expand, sort_z=sort_z, ysort_sub_rows=ysort,
-              max_pairs=max_pairs, center_cull=center_cull)
-    jpairs = jp.build_pairs(js, W, H, tile_h, tile_w,
-                            extra=jnp.asarray(extra), **kw)
-    tpairs = tp.build_pairs(ts, W, H, tile_h, tile_w,
-                            extra=torch.from_numpy(extra), **kw)
-    carried = pairs_from_numpy(to_numpy_leaves(jpairs), "cpu")
-    for name in ("starts", "ends", "sstarts", "sends", "gbounds",
-                 "pair_tri"):
-        np.testing.assert_array_equal(
-            getattr(tpairs, name).numpy(), getattr(carried, name).numpy(),
-            err_msg=name)
-    assert int(tpairs.overflow) == int(jpairs.overflow)
-    np.testing.assert_array_equal(tpairs.records.numpy(),
-                                  carried.records.numpy())
-    if max_pairs is not None:
-        assert int(tpairs.overflow) > 0
-
-
-def test_build_pairs_accepts_gather_layouts_and_refuses_align():
-    _, ts = _setups(5)
-    a = tp.build_pairs(ts, W, H, 8, 128)
-    b = tp.build_pairs(ts, W, H, 8, 128, gather_chunks=4, gather_pack=8)
-    np.testing.assert_array_equal(a.records.numpy(), b.records.numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.build_pairs(ts, W, H, 8, 128, align=True)
-
-
-def _off_ties(depth_ref, tid_a, tid_b):
-    """Triangle ids are compared where they can be: the TPU kernel
-    quantises its winner key (2^-16 depth levels), so near-ties may
-    resolve to another triangle; fewer than 1 % of pixels, as the JAX
-    package's own test allows."""
-    return (tid_a != tid_b).mean() < 0.01
-
-
-@pytest.mark.parametrize("tile_h,tile_w,expand", [(8, 128, 8), (16, 32, 2)])
-def test_plain_pair_raster_matches_pallas_interpret(tile_h, tile_w, expand):
-    js, _ = _setups(7, n=200)
-    jpairs = jp.build_pairs(js, W, H, tile_h, tile_w, expand=expand,
-                            sort_z=True)
-    jd, jt = jp.rasterize_pairs(jpairs, H, W, tile_h=tile_h, tile_w=tile_w,
-                                interpret=True)
-    pairs = pairs_from_numpy(to_numpy_leaves(jpairs), "cpu")
-    td, tt = tp.rasterize_pairs(pairs, H, W, tile_h=tile_h, tile_w=tile_w)
-    # 5e-5: the TPU kernel packs depth into a 2^16-level winner key.
-    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=5e-5)
-    assert _off_ties(td.numpy(), tt.numpy(), np.asarray(jt))
-    # The pair path equals the brute-force rasterizer of the same package
-    # exactly in depth (same arithmetic), ids off exact ties.
-    ts = setup_from_numpy(to_numpy_leaves(js), "cpu")
-    bd, bt = tr.rasterize_visibility(ts, H, W)
-    np.testing.assert_array_equal(td.numpy(), bd.numpy())
-    assert (tt.numpy() != bt.numpy()).mean() < 0.002
-
-
-def test_plain_pair_raster_depth_only_and_init_depth():
-    js, _ = _setups(11, n=120)
-    jpairs = jp.build_pairs(js, W, H, 8, 128, sort_z=True, ysort_sub_rows=8)
-    pairs = pairs_from_numpy(to_numpy_leaves(jpairs), "cpu")
-    jd = jp.rasterize_pairs(jpairs, H, W, tile_h=8, tile_w=128,
-                            depth_only=True, interpret=True, y_row=13)
-    td = tp.rasterize_pairs(pairs, H, W, tile_h=8, tile_w=128,
-                            depth_only=True, y_row=13)
-    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=5e-5)
-
-    init = np.full((H, W), 0.4, np.float32)
-    jd2, jt2 = jp.rasterize_pairs(jpairs, H, W, init_depth=jnp.asarray(init),
-                                  tile_h=8, tile_w=128, interpret=True,
-                                  y_row=13)
-    td2, tt2 = tp.rasterize_pairs(pairs, H, W,
-                                  init_depth=torch.from_numpy(init),
-                                  tile_h=8, tile_w=128, y_row=13)
-    np.testing.assert_allclose(td2.numpy(), np.asarray(jd2), atol=5e-5)
-    assert _off_ties(td2.numpy(), tt2.numpy(), np.asarray(jt2))
-    # init_depth wins ties: nothing at or behind 0.4 is a winner.
-    assert (tt2.numpy()[td2.numpy() >= 0.4] == -1).all()
-    assert float(td2.max()) <= float(np.float32(0.4))
-
-
-def test_winner_rule_lowest_pair_id_at_exact_ties():
-    """Two coincident triangles: the winner is the one whose pair sorts
-    first (stable sort keeps triangle order inside equal keys), in every
-    tile, dense or supertile."""
-    clip = _random_clip(13, n=6)
-    clip[1] = clip[0]
-    clip[3] = clip[2] = clip[0] * np.float32(1.0)
-    ts = tr.triangle_setup(torch.from_numpy(clip), W, H, two_sided=True)
-    pairs = tp.build_pairs(ts, W, H, 8, 128, expand=2, sort_z=True)
-    depth, tid = tp.rasterize_pairs(pairs, H, W, tile_h=8, tile_w=128)
-    bd, bt = tr.rasterize_visibility(ts, H, W)
-    np.testing.assert_array_equal(depth.numpy(), bd.numpy())
-    cov = tid.numpy() >= 0
-    assert cov.any()
-    assert not np.isin(tid.numpy()[cov], [1, 2, 3]).any()
-
-
-def test_wrappers_refuse_cpu_tensors_for_the_cuda_backend():
-    _, ts = _setups(5)
-    pairs = tp.build_pairs(ts, W, H, 8, 128)
-    with pytest.raises(RuntimeError, match="card"):
-        tp.rasterize_pairs(pairs, H, W, tile_h=8, tile_w=128, backend="cuda")
-    assert tp.rasterize_pairs.launches == 0

@@ -1,0 +1,104 @@
+"""Everything outside the ported slice raises ``NotImplementedError``
+naming the ``ROADMAP.md`` item that will bring it; nothing is silently
+served by another path. One test per part of the frame, each going through
+all of that part's unported values."""
+
+import dataclasses
+
+import pytest
+import torch
+
+from zeldaengine_tpu_torch import TEST_CONFIG
+from zeldaengine_tpu_torch.passes import build_view_state, render_frame
+from zeldaengine_tpu_torch.passes.frame import render_rows
+from zeldaengine_tpu_torch.scene import build_demo_scene
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def frame_args():
+    cfg = TEST_CONFIG.replace(point_light_kernel="unroll")
+    scene, meta, world = build_demo_scene(cfg, grass=10, rocks=2,
+                                          device="cpu")
+    view = build_view_state(world, cfg, device="cpu")
+    return scene, view, meta, cfg
+
+
+# part of the frame -> [(what to change, the ROADMAP item it must name)].
+# A dict changes the config; a string names a change of view, scene, meta
+# or band (see _apply).
+_UNPORTED = {
+    "point_lights": [
+        (dict(point_light_kernel="auto"), "K5"),
+        (dict(point_light_kernel="pallas"), "K5"),
+        ("tiled_lights", "cull_point_lights_tiled"),
+    ],
+    "raster_options": [
+        (dict(compact_tris=512), "compact_setup"),
+        (dict(compact_tris_shadow=512), "compact_setup"),
+        (dict(pair_align=True), "align"),
+        (dict(raster_early_out=True), "early-out"),
+    ],
+    "pcf_backends": [
+        (dict(pcf_backend="packed"), "K6-K8"),
+        (dict(pcf_backend="pallas"), "K6-K8"),
+        (dict(pcf_backend="window_roll"), "K6-K8"),
+        (dict(pcf_backend="half"), "K6-K8"),
+    ],
+    "passes": [
+        (dict(env_merge=True), "envtap"),
+        (dict(wireframe=True), "wireframe"),
+        (dict(skydome_mode="mesh"), "skydome_mesh"),
+        (dict(enable_background=True), "background"),
+        (dict(validation=True), "validation"),
+    ],
+    "shading": [
+        (dict(reflection_half=True), "half"),
+        (dict(ablate="nopcf"), "ablations"),
+        ("no_cube_const", "samplers"),
+    ],
+    "scene_facts": [
+        ("has_forward", "forward_shade"),
+        ("has_meshlets", "culling"),
+        ("tex_channels", "samplers"),
+    ],
+    "view_and_bands": [
+        ("debug_view", "_debug_switch"),
+        ("band", "parallel/tiles.py"),
+    ],
+}
+
+
+def _apply(change, scene, view, meta, cfg):
+    """(scene, view, meta, cfg, render_rows keywords) with one change."""
+    kw = {}
+    if isinstance(change, dict):
+        cfg = cfg.replace(**change)
+    elif change == "debug_view":
+        view = view._replace(debug_view=torch.tensor(4, dtype=torch.int32))
+    elif change == "band":
+        kw = dict(y0=0, rows=64, full_frame=False)
+    elif change == "no_cube_const":
+        scene = scene._replace(cube_const=None)
+    elif change == "tiled_lights":
+        view = view._replace(point_lights=torch.zeros((128, 4, 4)))
+    else:
+        value = {"has_forward": True, "has_meshlets": True,
+                 "tex_channels": (0, 1, 2)}[change]
+        meta = dataclasses.replace(meta, **{change: value})
+    return scene, view, meta, cfg, kw
+
+
+@pytest.mark.parametrize("part", sorted(_UNPORTED))
+def test_unported_raises(frame_args, part):
+    for change, item in _UNPORTED[part]:
+        scene, view, meta, cfg, kw = _apply(change, *frame_args)
+        with pytest.raises(NotImplementedError) as err:
+            render_rows(scene, view, meta, cfg, **kw)
+        msg = str(err.value)
+        assert "ROADMAP.md" in msg and item in msg, (change, msg)
+    # ... and the frame these were derived from renders.
+    scene, view, meta, cfg = frame_args
+    img, _ = render_frame(scene, view, meta, cfg)
+    assert bool(torch.isfinite(img).all())

@@ -124,17 +124,10 @@ def triangle_setup(
         const_f, slope_f = depth_bias
         # Screen-space depth gradient: depth(p) = dot(u, zc) with
         # u = edge @ (px, py, 1)  =>  dz/dpx = sum_i zc_i * edge[i, 0].
-        # The sum cancels heavily (zc ~ 1/det while the gradient is small),
-        # so its accumulation order is part of the result: orders differ
-        # by up to ~1e-3 in slope on near-camera triangles. It is taken as
-        # a fused multiply-add chain over i (one f32 rounding per step,
-        # emulated exactly through f64), which is what the JAX package's
-        # einsum computes on the CPU and is the same on every device.
-        zc64, edge64 = zc.double(), edge.double()
-        zrow = zc[..., 0, None] * edge[..., 0, :]
-        for i in (1, 2):
-            zrow = (zc64[..., i, None] * edge64[..., i, :]
-                    + zrow.double()).float()
+        # The sum cancels heavily (zc ~ 1/det while the gradient is small):
+        # accumulation orders differ by up to ~1e-3 in slope on triangles
+        # with a small determinant. Plain fp32, in index order.
+        zrow = (zc[..., :, None] * edge).sum(-2)
         slope = torch.maximum(torch.abs(zrow[..., 0]), torch.abs(zrow[..., 1]))
         bias = slope_f * slope + const_f * 1.1920929e-7
         # Add a constant to the interpolated depth: with the scaled edges,

@@ -157,7 +157,7 @@ def _fused_flags(meta):
 
 
 def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
-                      meta=None, capture=None):
+                      meta=None):
     """Fused visibility raster + attribute interpolation: returns
     (depth, tid, attr planes (ATTR_CH, H, W), the pair stream). The frame is
     padded to whole tiles (1080 rows -> 1088 at 64-row tiles) and cropped
@@ -184,15 +184,13 @@ def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
               y_row=(12 + n_extra + has_z) if ysr else -1,
               need_uv=need_uv, has_combo=need_combo,
               combo_const=combo_const)
-    if capture is not None:
-        capture["pair_raster_fused"] = ((pairs, ph, pw), kw)
     depth, tid, planes = rasterize_pairs_fused(
         pairs, ph, pw, backend=config.raster, **kw)
     return (depth[:height, :width], tid[:height, :width],
             planes[:, :height, :width], pairs)
 
 
-def _raster_depth(setup, dim, config: EngineConfig, capture=None):
+def _raster_depth(setup, dim, config: EngineConfig):
     """The shadow map: depth-only pair raster at shadowmap resolution."""
     s_th = config.shadow_tile_h or config.tile_h
     s_tw = config.shadow_tile_w or config.tile_w
@@ -211,14 +209,12 @@ def _raster_depth(setup, dim, config: EngineConfig, capture=None):
                         center_cull=config.subpixel_cull)
     kw = dict(tile_h=s_th, tile_w=s_tw, sub_rows=config.sub_rows,
               depth_only=True, y_row=(12 + has_z) if ysr else -1)
-    if capture is not None:
-        capture["pair_raster"] = ((pairs, ph, pw), kw)
     depth = rasterize_pairs(pairs, ph, pw, backend=config.raster, **kw)
     return depth[:dim, :dim], pairs
 
 
 def _shadow_factor(shadowmap, world_pos, view, config: EngineConfig,
-                   valid=None, capture=None):
+                   valid=None):
     sc = compute_shadow_coord(view.shadow_space, world_pos)
     if config.pcf_backend in ("auto", "vmem") and sc.ndim == 3:
         # The tap kernel: equal to compute_pcf at every in-range pixel.
@@ -227,8 +223,6 @@ def _shadow_factor(shadowmap, world_pos, view, config: EngineConfig,
         kw = dict(radius=config.pcf_radius, scale=config.pcf_scale,
                   bias=config.shadow_bias, active=valid)
         sc = sc.contiguous()
-        if capture is not None:
-            capture["pcf_taps"] = ((shadowmap, sc), kw)
         sf, _overflow = compute_pcf_vmem(shadowmap, sc,
                                          backend=config.raster, **kw)
         if valid is not None:
@@ -241,7 +235,7 @@ def _shadow_factor(shadowmap, world_pos, view, config: EngineConfig,
 
 
 def resolve_lighting(gbuf: GBuffer, shadowmap, scene: GpuScene, view,
-                     config: EngineConfig, capture=None):
+                     config: EngineConfig):
     """BaseLighting.frag main(): unpack GBuffer, light (debug view 0).
     Returns (color (H, W, 3), shadow factor (H, W))."""
     base_color = gbuf.gbuffer_c[..., :3]
@@ -253,7 +247,7 @@ def resolve_lighting(gbuf: GBuffer, shadowmap, scene: GpuScene, view,
     world_pos = gbuf.gbuffer_d[..., :3]
 
     shadow_factor = _shadow_factor(shadowmap, world_pos, view, config,
-                                   valid=gbuf.depth < 1.0, capture=capture)
+                                   valid=gbuf.depth < 1.0)
     lit = shade_pixels(
         base_color, metallic, roughness, normal, ao, world_pos,
         shadow_factor, view, scene.cube_atlas, config.cubemap_size,
@@ -330,14 +324,12 @@ def _sky_ray(scene, view, height, width, config: EngineConfig):
 
 
 def _skydome_analytic(scene, view, depth, color, height, width,
-                      config: EngineConfig, capture=None):
+                      config: EngineConfig):
     """Analytic skydome pass (ray + one sky tap + compose)."""
     uv, sky_depth, hit = _sky_ray(scene, view, height, width, config)
     sky_mask = hit & (sky_depth < depth)
     args = (scene.sky_planes, uv.contiguous(), sky_mask,
             config.background_size)
-    if capture is not None:
-        capture["bilinear_tap"] = (args, {})
     tap, _ovf = sample_base_window(*args, backend=config.raster)
     sky_rgb = gamma_correct(tap[..., :3])
     color = torch.where(sky_mask[..., None], sky_rgb, color)
@@ -366,15 +358,11 @@ def render_rows(
     rows: Optional[int] = None,
     full_frame: bool = True,
     shadowmap_override=None,
-    capture: Optional[dict] = None,
 ):
     """The frame. Row bands (``y0``/``rows``/``full_frame=False``, the
     multi-device path of the JAX package) are not ported: only the full
     frame renders. ``shadowmap_override`` takes an already-computed
-    (D, D) shadow map instead of rasterizing one. ``capture``, when a
-    dict, receives under each kernel's name the arguments its wrapper was
-    called with in this frame (references, not copies), so that a check
-    can replay every kernel on the inputs the frame really gave it."""
+    (D, D) shadow map instead of rasterizing one."""
     if config.raster not in _RASTER_BACKENDS:
         raise ValueError(
             f"config.raster={config.raster!r}: expected one of "
@@ -424,7 +412,7 @@ def render_rows(
                         config.shadow_bias_slope),
         )
         shadowmap, pairs_sh = _raster_depth(
-            setup_sh, config.shadowmap_dim, config, capture=capture)
+            setup_sh, config.shadowmap_dim, config)
         shadowmap = shadowmap.contiguous()
         pair_overflow = pair_overflow + pairs_sh.overflow
         live_pairs["shadow"] = pairs_sh.gbounds[1]
@@ -445,15 +433,14 @@ def render_rows(
         extra = _fused_extra(scene, setup.edge.shape[0], world, n_world,
                              need_uv=f_uv, need_combo=f_combo)
         depth_d, tid_d, planes_d, pairs_d = _raster_vis_fused(
-            setup, extra, height, width, config, meta=meta,
-            capture=capture)
+            setup, extra, height, width, config, meta=meta)
         attrs_d = surface_attributes_from_planes(
             scene, planes_d, config, var_ch=meta.tex_channels,
             flat_normal=meta.flat_normal)
         gbuf = pack_gbuffer(attrs_d, depth_d)
         # ---- 4a. deferred lighting (fullscreen, no depth test)
         color, shadow_factor = resolve_lighting(
-            gbuf, shadowmap, scene, view, config, capture=capture)
+            gbuf, shadowmap, scene, view, config)
         pair_overflow = pair_overflow + pairs_d.overflow
         live_pairs["gbuffer"] = pairs_d.gbounds[1]
     else:
@@ -469,8 +456,7 @@ def render_rows(
     # ---- 4c. skydome (LESS_OR_EQUAL against current depth)
     if meta.enable_skydome and config.enable_skydome:
         color, depth = _skydome_analytic(
-            scene, view, depth, color, height, width, config,
-            capture=capture)
+            scene, view, depth, color, height, width, config)
 
     aux = {
         "depth": depth,
