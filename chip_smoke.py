@@ -3,20 +3,24 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``zeldaengine_tpu_torch/csrc`` and drives the
-port's main path: the 1920x1080 deferred demo frame (10000 grass instances
-per species, 65 rocks, 16 point lights, tiles 64x32) through
-``render_frame``. Every kernel is replayed on the inputs the frame gave it
-and held against its plain PyTorch version on the card; one frame at
-256x256 rendered through the kernels is held against the same frame
-rendered through the plain versions, and the engine shell presents two
-1080p frames. Each phase prints one JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failure raises: the
-script exits non-zero and prints no result. It needs a CUDA device, nvcc,
-and nothing else beyond PyTorch and NumPy.
+port's paths through ``render_frame``: the 1920x1080 deferred demo frame of
+bench config 3 at its defaults (10000 grass instances per species, 65
+rocks, 16 point lights culled to 40x128 blocks and shaded by the
+point-light kernel, tiles 64x32); the same frame with 512 point lights;
+and one frame through each opt-in PCF backend that has a kernel. Every
+kernel is replayed on the inputs a frame gave it and held against its
+plain PyTorch version on the card; 256x256 frames rendered through the
+kernels are held against the same frames rendered through the plain
+versions, and the engine shell presents two 1080p frames. Each phase
+prints one JSON line; the last line is ``{"ok": true, "device": {...}}``.
+Any failure raises: the script exits non-zero and prints no result. It
+needs a CUDA device, nvcc, and nothing else beyond PyTorch and NumPy.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import shutil
@@ -36,12 +40,14 @@ from zeldaengine_tpu_torch import EngineConfig, TEST_CONFIG  # noqa: E402
 from zeldaengine_tpu_torch import ops  # noqa: E402
 from zeldaengine_tpu_torch.engine import Engine  # noqa: E402
 from zeldaengine_tpu_torch.ops import _build  # noqa: E402
+from zeldaengine_tpu_torch.ops import lighting, lighting_cuda  # noqa: E402
 from zeldaengine_tpu_torch.ops import pcf_cuda, rasterize as rast  # noqa: E402
+from zeldaengine_tpu_torch.ops import pcf_tables, pcf_window  # noqa: E402
 from zeldaengine_tpu_torch.ops import rasterize_cuda as rc  # noqa: E402
-from zeldaengine_tpu_torch.ops import window_tap  # noqa: E402
+from zeldaengine_tpu_torch.ops import shadow, window_tap  # noqa: E402
 from zeldaengine_tpu_torch.passes import build_view_state, render_frame  # noqa: E402
 from zeldaengine_tpu_torch.passes import frame as frame_graph  # noqa: E402
-from zeldaengine_tpu_torch.scene import build_demo_scene  # noqa: E402
+from zeldaengine_tpu_torch.scene import LightDesc, build_demo_scene  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the roofline the
 # kernels' bounds are stated against.
@@ -51,12 +57,38 @@ PEAK_FP32_PER_S = 67e12
 # 2 add each), depth (3 mul + 2 add), edge sum (2), edge min (2), five
 # compares and the select.
 OPS_PER_TEST = 26
-# The names under which the frame graph calls the kernels' wrappers.
+# fp32 operations of one (pixel, light) pair of kernel point_lights: the
+# light vector (3 sub, 5 for its length, max, sqrt, 3 div), the half vector
+# (3 add, 7 for its length, 3 div), three clamped dot products (7 each),
+# Fresnel (6), the two visibility roots (5 each), visibility (2), the NDF
+# (7), fr (2), fd90 (4), light and view scatter (7 + 3), fd and kd (4),
+# falloff (5), radiance (2) and the three channel updates (5 each).
+OPS_PER_PIXEL_LIGHT = 115
+# fp32 operations of one PCF tap: 2 for the coordinate, floor, subtract and
+# clamp, the compare, the select and the add.
+OPS_PER_TAP = 8
+# Where each kernel's wrapper is called on its path (module, name): the
+# argument shim replaces these names while a frame is noted.
 FRAME_CALLS = {
-    "pair_raster": "rasterize_pairs",
-    "pair_raster_fused": "rasterize_pairs_fused",
-    "pcf_taps": "compute_pcf_vmem",
-    "bilinear_tap": "sample_base_window",
+    "pair_raster": (frame_graph, "rasterize_pairs"),
+    "pair_raster_fused": (frame_graph, "rasterize_pairs_fused"),
+    "pcf_taps": (frame_graph, "compute_pcf_vmem"),
+    "bilinear_tap": (frame_graph, "sample_base_window"),
+    "point_lights": (lighting, "point_lighting"),
+    "pcf_window": (frame_graph, "compute_pcf_pallas"),
+    "pcf_window_table": (shadow, "build_pcf_window_table"),
+    "pcf_window2d_table": (shadow, "build_pcf_window2d_table"),
+}
+# Failures found by a phase whose kernels phase kernels replays first.
+FAILURES = []
+MAIN_PATH = ("pair_raster", "pair_raster_fused", "pcf_taps",
+             "bilinear_tap", "point_lights")
+# The kernel each opt-in PCF backend adds to the frame (K3 then runs not).
+PCF_BACKEND_KERNEL = {
+    "pallas": "pcf_window",
+    "packed_roll": "pcf_window_table",
+    "window_roll": "pcf_window2d_table",
+    "half_wr": "pcf_window2d_table",
 }
 
 KERNELS = {
@@ -72,6 +104,18 @@ KERNELS = {
     "bilinear_tap": dict(
         source="zeldaengine_tpu_torch/csrc/bilinear_tap.cu",
         replaces="zeldaengine_tpu/ops/window_tap.py:48"),
+    "point_lights": dict(
+        source="zeldaengine_tpu_torch/csrc/point_lights.cu",
+        replaces="zeldaengine_tpu/ops/lighting_pallas.py:52"),
+    "pcf_window": dict(
+        source="zeldaengine_tpu_torch/csrc/pcf_window.cu",
+        replaces="zeldaengine_tpu/ops/pcf_pallas.py:37"),
+    "pcf_window_table": dict(
+        source="zeldaengine_tpu_torch/csrc/pcf_window_table.cu",
+        replaces="zeldaengine_tpu/ops/pcf_pallas.py:260"),
+    "pcf_window2d_table": dict(
+        source="zeldaengine_tpu_torch/csrc/pcf_window_table.cu",
+        replaces="zeldaengine_tpu/ops/pcf_pallas.py:311"),
 }
 
 
@@ -142,15 +186,16 @@ def phase_build() -> None:
 
 @contextlib.contextmanager
 def recorded_calls(calls: dict):
-    """While active, every call the frame graph makes to a kernel's wrapper
-    or to ``build_pairs`` is noted in ``calls`` (references, not copies)
-    and passed on unchanged: ``calls[kernel] = (args, kwargs)`` without
-    the ``backend`` keyword, ``calls["build_pairs"] = [(setup, pairs), ...]``
+    """While active, every call a frame makes to a kernel's wrapper or to
+    ``build_pairs`` is noted in ``calls`` (references, not copies) and
+    passed on unchanged: ``calls[kernel] = (args, kwargs)`` without the
+    ``backend`` keyword, ``calls["build_pairs"] = [(setup, pairs), ...]``
     in call order (shadow pass first, GBuffer second)."""
-    saved = {}
+    saved = []
 
-    def shim(name, key):
-        fn = saved[name] = getattr(frame_graph, name)
+    def shim(module, name, key):
+        fn = getattr(module, name)
+        saved.append((module, name, fn))
 
         def call(*args, **kw):
             out = fn(*args, **kw)
@@ -160,16 +205,16 @@ def recorded_calls(calls: dict):
                 calls[key] = (args, {k: v for k, v in kw.items()
                                      if k != "backend"})
             return out
-        setattr(frame_graph, name, call)
+        setattr(module, name, call)
 
-    shim("build_pairs", "build_pairs")
-    for key, name in FRAME_CALLS.items():
-        shim(name, key)
+    shim(frame_graph, "build_pairs", "build_pairs")
+    for key, (module, name) in FRAME_CALLS.items():
+        shim(module, name, key)
     try:
         yield calls
     finally:
-        for name, fn in saved.items():
-            setattr(frame_graph, name, fn)
+        for module, name, fn in saved:
+            setattr(module, name, fn)
 
 
 def needed_tests(pairs: rc.PairedTriangles, setup, height, width, tile_h,
@@ -269,9 +314,10 @@ def random_pairs(seed, n, height, width, tile_h, tile_w, extra_w=0,
 
 
 def phase_kernels(captured: dict, frame_launches: dict) -> list:
-    """Replay every kernel on the inputs the 1080p frame gave it (plus
-    option variants and one small ragged shape), hold it against its plain
-    version on the card, time both."""
+    """Replay every kernel on the inputs a 1080p frame of its path gave it
+    (plus option variants and one small ragged shape), hold it against its
+    plain version on the card, time both. ``frame_launches[name]`` is the
+    kernel's launch count in its path's run."""
     rows = []
     checks = {}
 
@@ -407,24 +453,161 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
                      # reflects or clamps where this repeats, then clamps
                      # at the edge): no library call computes this.
                      library_ms=None))
+    # ---- K5 point_lights: bit for bit with its plain version is the aim
+    # (same operation order, -fmad=false, IEEE div / sqrt); <= 1e-6.
+    def cmp_lights(k, p):
+        err = float((k - p).abs().max())
+        check(err <= 1e-6, f"max-abs {err} > 1e-6")
+        return {"max_abs_err": err,
+                "values_not_bitwise_equal": int((k != p).sum())}
+
+    largs, lkw = captured["point_lights"]
+    lmain = run("point_lights", "frame: 16 lights, blocks 40x128",
+                lighting_cuda.point_lighting, largs, lkw, cmp_lights)
+    largs512, lkw512 = captured["point_lights_512"]
+    run("point_lights", "frame: 512 lights, blocks 40x128",
+        lighting_cuda.point_lighting, largs512, lkw512, cmp_lights)
+    # A ragged frame height (the last block row is partial) on the same
+    # planes, with the lists of the frame's block grid cut to fit.
+    hh = 1000
+    cut = [a[:hh] if a.dim() >= 2 and a.shape[0] == largs[0].shape[0]
+           else a for a in largs[:7]]
+    n_by = -(-hh // lkw["block_h"])
+    run("point_lights", "ragged 1000x1920", lighting_cuda.point_lighting,
+        (*[c.contiguous() for c in cut], largs[7], largs[8][:n_by].contiguous(),
+         largs[9][:n_by].contiguous()), lkw, cmp_lights)
+    ms = cuda_ms(lambda: lighting_cuda.point_lighting(
+        *largs, backend="cuda", **lkw), 20)
+    ms_512 = cuda_ms(lambda: lighting_cuda.point_lighting(
+        *largs512, backend="cuda", **lkw512), 20)
+    plain_ms = cuda_ms(lambda: lighting_cuda.point_lighting(
+        *largs, backend="torch", **lkw), 2)
+    acc, tile_cnt = largs[0], largs[9]
+    h, w = acc.shape[:2]
+    bh = lkw["block_h"]
+    rows_in_block = torch.clamp(
+        h - torch.arange(tile_cnt.shape[0], device=acc.device) * bh, max=bh)
+    pairs = int((tile_cnt.long() * rows_in_block[:, None]).sum()) * 128
+    # What these lists need: every pixel reads its partial sum and writes
+    # its result (24 B); only pixels of blocks with a light read their
+    # surface (4 x 12 + 2 x 4 B); the lights and lists of those blocks.
+    lit_px = int(((tile_cnt > 0).long() * rows_in_block[:, None]).sum()) * 128
+    n_bytes = (h * w * 24 + lit_px * 56
+               + int(tile_cnt.sum()) * (16 * 4 + 4) + tile_cnt.numel() * 4)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = pairs * OPS_PER_PIXEL_LIGHT / PEAK_FP32_PER_S * 1e3
+    rows.append(dict(name="point_lights", route="cuda",
+                     **KERNELS["point_lights"],
+                     launches=frame_launches["point_lights"],
+                     max_abs_err=lmain["max_abs_err"], ms=ms, kernel_ms=ms,
+                     plain_ms=plain_ms,
+                     bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     pixel_light_pairs=pairs, lit_pixels=lit_px,
+                     bytes=n_bytes,
+                     ms_512_lights=ms_512,
+                     # No PyTorch call shades a culled light list.
+                     library_ms=None))
+
+    # ---- K6 pcf_window (one ulp of the final division: <= 6e-8)
+    def cmp_pcf(k, p):
+        err = float((k - p).abs().max())
+        check(err <= 6e-8, f"max-abs {err} > 6e-8")
+        return {"max_abs_err": err}
+
+    (w_sm, w_sc), w_kw = captured["pcf_window"]
+    inp, win = pcf_window.pcf_window_inputs(
+        w_sm, w_sc, w_kw["radius"], w_kw["scale"], w_kw["bias"],
+        w_kw["tile_h"], w_kw["tile_w"], w_kw["win"], w_kw["valid"])
+    wargs = (inp, w_kw["radius"], w_kw["scale"], w_kw["tile_h"],
+             w_kw["tile_w"], win)
+    wkw = {}
+    wmain = run("pcf_window", "frame: pcf_backend=pallas, tiles 64x32",
+                pcf_window.pcf_window_taps, wargs, wkw, cmp_pcf)
+    small_sm = torch.from_numpy(rng.random((256, 256)).astype(
+        np.float32)).cuda()
+    small_sc = torch.from_numpy(np.concatenate(
+        [rng.uniform(-0.3, 1.3, (64, 256, 2)), rng.uniform(-0.2, 1.1, (64, 256, 1)),
+         rng.uniform(0.5, 1.5, (64, 256, 1))], -1).astype(np.float32)).cuda()
+    for win in (128, 256):
+        sinp, swin = pcf_window.pcf_window_inputs(
+            small_sm, small_sc, 2, 1.5, 0.002, 32, 128, win)
+        run("pcf_window", f"wild 64x256, map 256, win {win}",
+            pcf_window.pcf_window_taps, (sinp, 2, 1.5, 32, 128, swin), {},
+            cmp_pcf)
+    ms = cuda_ms(lambda: pcf_window.pcf_window_taps(
+        *wargs, backend="cuda", **wkw), 20)
+    plain_ms = cuda_ms(lambda: pcf_window.pcf_window_taps(
+        *wargs, backend="torch", **wkw), 3)
+    radius = wargs[1]
+    n_px = inp.fx.numel()
+    n_bytes = n_px * 20 + inp.sm_padded.numel() * 4 + inp.origins.numel() * 4
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_px * (2 * radius + 1) ** 2 * OPS_PER_TAP / PEAK_FP32_PER_S * 1e3
+    rows.append(dict(name="pcf_window", route="cuda", **KERNELS["pcf_window"],
+                     launches=frame_launches["pcf_window"],
+                     max_abs_err=wmain["max_abs_err"], ms=ms, kernel_ms=ms,
+                     plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     # No PyTorch call filters inside per-tile windows.
+                     library_ms=None))
+
+    # ---- K7 / K8 window tables: pure data movement, exactly equal
+    def cmp_exact(k, p):
+        err = float((k - p).abs().max())
+        check(torch.equal(k, p), f"tables differ (max-abs {err})")
+        return {"max_abs_err": err}
+
+    for name, fn, label in (
+            ("pcf_window_table", pcf_tables.build_pcf_window_table,
+             "frame: pcf_backend=packed_roll"),
+            ("pcf_window2d_table", pcf_tables.build_pcf_window2d_table,
+             "frame: pcf_backend=window_roll")):
+        targs, tkw = captured[name]
+        tmain = run(name, label, fn, targs, tkw, cmp_exact)
+        odd = torch.from_numpy(rng.random((37, 53)).astype(np.float32)).cuda()
+        run(name, "ragged 37x53 map", fn, (odd,), tkw, cmp_exact)
+        if name == "pcf_window2d_table":
+            run(name, "half_wr frame", fn,
+                *captured["pcf_window2d_table_half"], cmp_exact)
+            run(name, "ragged 37x53, w_y 13", fn, (odd,),
+                dict(lo_x=-3, lo_y=-6, w_y=13), cmp_exact)
+        sm_t = targs[0]
+        ms = cuda_ms(lambda: fn(*targs, backend="cuda", **tkw), 20)
+        plain_ms = cuda_ms(lambda: fn(*targs, backend="torch", **tkw), 3)
+        out = fn(*targs, backend="cuda", **tkw)
+        library_ms = None
+        if name == "pcf_window_table":
+            # One index_select of the map's columns is the same table: its
+            # (D, D*8) result is the (D*D, 8) table, row-major.
+            cols = pcf_tables._wrapped(sm_t.shape[1], tkw["lo"], 8,
+                                       sm_t.device).reshape(-1)
+            check(torch.equal(torch.index_select(sm_t, 1, cols).reshape(
+                out.shape), out), "index_select table differs")
+            library_ms = cuda_ms(
+                lambda: torch.index_select(sm_t, 1, cols), 20)
+        rows.append(dict(name=name, route="cuda", **KERNELS[name],
+                         launches=frame_launches[name],
+                         max_abs_err=tmain["max_abs_err"], ms=ms,
+                         kernel_ms=ms, plain_ms=plain_ms,
+                         **bytes_bound(sm_t.numel() * 4 + out.numel() * 4),
+                         # K8: no single call wraps both axes of a 2-D
+                         # window without an index as large as the table.
+                         library_ms=library_ms))
     emit("kernels", checks=checks)
     return rows
 
 
-def phase_frame():
-    """The main path: 2 warm-up + 8 timed 1080p frames of the demo scene
-    through ``render_frame`` with moving time / light roll."""
-    config = EngineConfig(width=1920, height=1080, tile_h=64, tile_w=32,
-                          max_pairs=384 * 1024, max_pairs_shadow=256 * 1024,
-                          point_light_kernel="unroll")
-    t0 = time.time()
-    scene, meta, world = build_demo_scene(config, grass=10000, rocks=65)
-    torch.cuda.synchronize()
-    build_s = time.time() - t0
-    check(scene.pair_pos.is_cuda, "scene is not on the card")
-    warm, timed = 2, 8
+def config3() -> EngineConfig:
+    """bench.py's config 3 (bench.py:442-448), nothing else changed."""
+    return EngineConfig(width=1920, height=1080, tile_h=64, tile_w=32,
+                        max_pairs=384 * 1024, max_pairs_shadow=256 * 1024)
 
-    torch.cuda.reset_peak_memory_stats()
+
+def timed_frames(scene, meta, world, config, warm: int, timed: int):
+    """``warm + timed`` frames with moving time / light roll, the launch
+    counts set to 0 just before and read just after. Returns (frame_ms
+    list, host_ms list, last image, last aux, launches)."""
     ops.reset_kernel_launch_counts()
     frame_ms, host_ms = [], []
     image = aux = None
@@ -441,12 +624,27 @@ def phase_frame():
         if i >= warm:
             frame_ms.append(start.elapsed_time(end))
             host_ms.append((time.time() - t0) * 1e3)
-    launches = ops.kernel_launch_counts()
-    for name, count in launches.items():
-        check(count == warm + timed,
-              f"kernel {name} launched {count} times in {warm + timed} "
-              "frames, expected one per frame")
+    return frame_ms, host_ms, image, aux, ops.kernel_launch_counts()
 
+
+def check_launches(launches: dict, want: dict, what: str) -> None:
+    for name, count in launches.items():
+        check(count == want.get(name, 0),
+              f"{what}: kernel {name} launched {count} times, expected "
+              f"{want.get(name, 0)}")
+
+
+def noted_frame(scene, meta, world, config, view_kw=None):
+    """One more frame with the kernels' arguments noted."""
+    view = build_view_state(world, config,
+                            **(view_kw or dict(time=0.5, roll_light=0.6)))
+    with recorded_calls({}) as captured:
+        image, aux = render_frame(scene, view, meta, config)
+    torch.cuda.synchronize()
+    return captured, image, aux
+
+
+def check_image(image, aux) -> tuple:
     check(tuple(image.shape) == (1080, 1920, 3), f"image {image.shape}")
     check(bool(torch.isfinite(image).all()), "image is not finite")
     check(float(image.min()) >= 0.0 and float(image.max()) <= 1.0,
@@ -458,16 +656,40 @@ def phase_frame():
     sf = aux["shadow_factor"][aux["tri_id"] >= 0]
     check(float(sf.min()) < float(sf.max()), "shadow factor is constant")
     check(float(image.std()) > 0.02, "image is flat")
+    return covered, sky, sf
 
-    # One more frame with the kernels' arguments noted, for phase 3.
-    view = build_view_state(world, config, time=0.5, roll_light=0.6)
-    with recorded_calls({}) as captured:
-        render_frame(scene, view, meta, config)
+
+def phase_frame():
+    """The main path: 2 warm-up + 8 timed 1080p frames of the demo scene
+    at bench config 3's defaults through ``render_frame``: K1-K5 once per
+    frame, K6-K8 never."""
+    config = config3()
+    check(config.point_light_kernel == "auto" and config.pcf_backend == "auto",
+          "config 3 is not at its defaults")
+    t0 = time.time()
+    scene, meta, world = build_demo_scene(config, grass=10000, rocks=65)
     torch.cuda.synchronize()
+    build_s = time.time() - t0
+    check(scene.pair_pos.is_cuda, "scene is not on the card")
+    warm, timed = 2, 8
+
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms, host_ms, image, aux, launches = timed_frames(
+        scene, meta, world, config, warm, timed)
+    check_launches(launches, {k: warm + timed for k in MAIN_PATH}, "frame")
+    covered, sky, sf = check_image(image, aux)
+
+    # One more frame with the kernels' arguments noted, for phase kernels.
+    captured, _, _ = noted_frame(scene, meta, world, config)
+    tile_cnt = captured["point_lights"][0][9]
     emit("frame", frame_ms=statistics.median(frame_ms),
          frame_ms_all=frame_ms, host_frame_ms=statistics.median(host_ms),
          frames=timed, warmup=warm, triangles=meta.num_triangles,
          instances=meta.num_instances,
+         point_lights=int(build_view_state(world, config).lights_count[1]),
+         light_drops=int(aux["light_drops"]),
+         max_tile_cnt=int(tile_cnt.max()),
+         mean_tile_cnt=float(tile_cnt.float().mean()),
          live_pairs={k: int(v) for k, v in aux["live_pairs"].items()},
          pair_overflow=int(aux["pair_overflow"]),
          covered_fraction=covered, sky_fraction=sky,
@@ -476,10 +698,90 @@ def phase_frame():
          peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
          launches=launches)
     phase_profile(scene, meta, world, config)
-    return captured, launches
+    return scene, meta, world, config, captured, launches
 
 
-def phase_profile(scene, meta, world, config) -> None:
+def phase_lights512(scene, meta, world, config, captured: dict) -> None:
+    """The same config and scene with point lights added until there are
+    512, made as bench.py:456-473 makes them: 2 warm-up + 4 timed frames,
+    every one through K5."""
+    world = copy.copy(world)
+    world.point_lights = list(world.point_lights)
+    rng = np.random.RandomState(3)
+    while len(world.point_lights) < 512:
+        a = rng.uniform(0, 2 * np.pi)
+        d = rng.uniform(0.5, 8.0)
+        world.point_lights.append(LightDesc(
+            position=np.array([np.sin(a) * d, np.cos(a) * d, 1.0],
+                              np.float32),
+            type=1,
+            color=np.array([rng.uniform(0.4, 0.8), rng.uniform(0.2, 0.5),
+                            0.1], np.float32),
+            intensity=8.0, radius=1.5))
+    warm, timed = 2, 4
+    frame_ms, host_ms, image, aux, launches = timed_frames(
+        scene, meta, world, config, warm, timed)
+    check_launches(launches, {k: warm + timed for k in MAIN_PATH},
+                   "lights512")
+    check_image(image, aux)
+    noted, _, aux_n = noted_frame(scene, meta, world, config)
+    args = noted["point_lights"][0]
+    check(args[7].shape[0] == 512, f"light table {tuple(args[7].shape)}")
+    captured["point_lights_512"] = noted["point_lights"]
+    hist = torch.bincount(args[9].flatten().long(),
+                          minlength=config.max_tile_lights + 1)
+    emit("lights512", frame_ms=statistics.median(frame_ms),
+         frame_ms_all=frame_ms, host_frame_ms=statistics.median(host_ms),
+         frames=timed, warmup=warm, point_lights=512,
+         light_drops=int(aux["light_drops"]),
+         light_drops_noted_frame=int(aux_n["light_drops"]),
+         tile_cnt_histogram=hist.tolist(), launches=launches)
+    phase_profile(scene, meta, world, config, phase="profile_lights512")
+
+
+def phase_pcf_backends(scene, meta, world, config, captured: dict) -> dict:
+    """One 1080p config-3 frame through each opt-in PCF backend that has a
+    kernel, against the K3 frame of the same view: each backend's kernel
+    once per frame and K3 never; "packed_roll" / "window_roll" give K3's
+    shadow factor at every covered pixel (exact); for "pallas" and
+    "half_wr" the share of covered pixels whose factor differs."""
+    view_kw = dict(time=0.25, roll_light=0.4)
+    _, base_img, base_aux = noted_frame(scene, meta, world, config, view_kw)
+    covered = base_aux["tri_id"] >= 0
+    ref = base_aux["shadow_factor"][covered]
+    launches_sum = {}
+    out = {}
+    for backend, kernel in PCF_BACKEND_KERNEL.items():
+        cfg = config.replace(pcf_backend=backend)
+        ops.reset_kernel_launch_counts()
+        noted, image, aux = noted_frame(scene, meta, world, cfg, view_kw)
+        launches = ops.kernel_launch_counts()
+        want = {k: 1 for k in MAIN_PATH if k != "pcf_taps"}
+        want[kernel] = 1
+        check_launches(launches, want, f"pcf_backend={backend}")
+        for k, v in launches.items():
+            launches_sum[k] = launches_sum.get(k, 0) + v
+        check(torch.equal(aux["tri_id"], base_aux["tri_id"]),
+              f"{backend}: the raster changed")
+        sf = aux["shadow_factor"][covered]
+        diff = (sf - ref).abs()
+        res = dict(launches={kernel: launches[kernel]},
+                   differing_fraction=float((diff > 0).float().mean()),
+                   max_abs_diff=float(diff.max()),
+                   image_max_abs_diff=float((image - base_img).abs().max()))
+        if backend in ("packed_roll", "window_roll") \
+                and not torch.equal(sf, ref):
+            # Checked after phase kernels, which replays the tables.
+            FAILURES.append(f"{backend}: shadow factor differs from K3's at "
+                            f"{int((diff > 0).sum())} covered pixels")
+        key = kernel + ("_half" if backend == "half_wr" else "")
+        captured[key] = noted[kernel]
+        out[backend] = res
+    emit("pcf_backends", covered_pixels=int(covered.sum()), **out)
+    return launches_sum
+
+
+def phase_profile(scene, meta, world, config, phase="profile") -> None:
     """Where one frame's device time goes: the ten device operations with
     the largest summed time (torch.profiler), beside the frame's total."""
     from torch.profiler import ProfilerActivity, profile
@@ -504,45 +806,56 @@ def phase_profile(scene, meta, world, config) -> None:
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                   key=dev_us, reverse=True)
     total = sum(dev_us(e) for e in rows)
-    emit("profile", device_busy_ms=total / 1e3,
+    emit(phase, device_busy_ms=total / 1e3,
          device_launches=sum(e.count for e in rows),
          top=[{"name": e.key[:70], "ms": dev_us(e) / 1e3, "calls": e.count}
               for e in rows[:10]])
 
 
 def phase_frame_vs_plain() -> None:
-    """One 256x256 frame through the kernels against the same frame
-    through the plain versions, on the card."""
-    config = TEST_CONFIG.replace(width=256, height=256, tile_h=16, tile_w=32,
-                                 point_light_kernel="unroll", raster="cuda")
-    scene, meta, world = build_demo_scene(config, grass=200, rocks=8)
-    view = build_view_state(world, config, time=0.25, roll_light=0.1)
-    img_k, aux_k = render_frame(scene, view, meta, config)
-    img_p, aux_p = render_frame(scene, view, meta,
-                                config.replace(raster="torch"))
-    torch.cuda.synchronize()
-    res = golden(img_k, img_p)
-    sm_err = float((aux_k["shadowmap"] - aux_p["shadowmap"]).abs().max())
-    check(sm_err <= 1e-6, f"shadow map max-abs {sm_err}")
-    emit("frame_vs_plain", **res, shadowmap_max_abs_err=sm_err,
-         tri_id_mismatches=int((aux_k["tri_id"] != aux_p["tri_id"]).sum()),
-         covered_fraction=float((aux_k["tri_id"] >= 0).float().mean()))
+    """256x256 frames through the kernels against the same frames through
+    the plain versions, on the card: "auto" point lights with K3, and each
+    PCF backend that has a kernel."""
+    base = TEST_CONFIG.replace(width=256, height=256, tile_h=16, tile_w=32,
+                               raster="cuda")
+    check(base.point_light_kernel == "auto", "point lights are not culled")
+    scene, meta, world = build_demo_scene(base, grass=200, rocks=8)
+    view = build_view_state(world, base, time=0.25, roll_light=0.1)
+    out = {}
+    for backend in ("auto", *PCF_BACKEND_KERNEL):
+        config = base.replace(pcf_backend=backend)
+        ops.reset_kernel_launch_counts()
+        img_k, aux_k = render_frame(scene, view, meta, config)
+        launches = ops.kernel_launch_counts()
+        img_p, aux_p = render_frame(scene, view, meta,
+                                    config.replace(raster="torch"))
+        torch.cuda.synchronize()
+        check(launches["point_lights"] == 1, f"{backend}: K5 not launched")
+        res = golden(img_k, img_p)
+        sm_err = float((aux_k["shadowmap"] - aux_p["shadowmap"]).abs().max())
+        check(sm_err <= 1e-6, f"shadow map max-abs {sm_err}")
+        sf_err = float((aux_k["shadow_factor"]
+                        - aux_p["shadow_factor"]).abs().max())
+        check(sf_err <= 6e-8, f"{backend}: shadow factor max-abs {sf_err}")
+        out[backend] = dict(
+            **res, shadowmap_max_abs_err=sm_err, shadow_factor_max_abs_err=sf_err,
+            tri_id_mismatches=int((aux_k["tri_id"] != aux_p["tri_id"]).sum()),
+            light_drops=int(aux_k["light_drops"]))
+    emit("frame_vs_plain",
+         covered_fraction=float((aux_k["tri_id"] >= 0).float().mean()), **out)
 
 
 def phase_engine() -> None:
     """The engine shell, the entry point behind ``python -m
-    zeldaengine_tpu_torch.engine``: build the default demo world at 1080p,
-    tick twice, check what it presents and that every tick went through
-    the four kernels once."""
+    zeldaengine_tpu_torch.engine``, at its defaults: build the default demo
+    world at 1080p, tick twice, check what it presents and that every tick
+    went through K1-K5 once."""
     engine = Engine(EngineConfig(width=1920, height=1080, frames_in_flight=1,
-                                 present_mode="fifo",
-                                 point_light_kernel="unroll"))
+                                 present_mode="fifo"))
     ops.reset_kernel_launch_counts()
     frames = [engine.tick() for _ in range(2)]
     launches = ops.kernel_launch_counts()
-    for name, count in launches.items():
-        check(count == 2, f"engine: kernel {name} launched {count} times "
-                          "in 2 ticks")
+    check_launches(launches, {k: 2 for k in MAIN_PATH}, "engine")
     for img in frames:
         check(img.dtype == np.uint8 and img.shape == (1080, 1920, 3),
               f"engine presented {img.dtype} {img.shape}")
@@ -557,8 +870,13 @@ def main() -> None:
     t0 = time.time()
     info = phase_device()
     phase_build()
-    captured, launches = phase_frame()
+    scene, meta, world, config, captured, launches = phase_frame()
+    phase_lights512(scene, meta, world, config, captured)
+    pcf_launches = phase_pcf_backends(scene, meta, world, config, captured)
+    for name in PCF_BACKEND_KERNEL.values():
+        launches[name] = pcf_launches[name]
     rows = phase_kernels(captured, launches)
+    check(not FAILURES, "; ".join(FAILURES))
     phase_frame_vs_plain()
     phase_engine()
     emit("done", seconds=round(time.time() - t0, 1))

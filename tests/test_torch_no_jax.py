@@ -31,11 +31,21 @@ def test_package_layout_is_there():
                  "zeldaengine_tpu_torch/ops/rasterize_cuda.py",
                  "zeldaengine_tpu_torch/ops/pcf_cuda.py",
                  "zeldaengine_tpu_torch/ops/window_tap.py",
+                 "zeldaengine_tpu_torch/ops/lighting_cuda.py",
+                 "zeldaengine_tpu_torch/ops/pcf_window.py",
+                 "zeldaengine_tpu_torch/ops/pcf_tables.py",
                  "zeldaengine_tpu_torch/passes/frame.py"):
         assert want in files
     csrc = set(os.listdir(os.path.join(PKG, "csrc")))
     assert {"pair_raster.cu", "pair_raster_fused.cu", "pcf_taps.cu",
-            "bilinear_tap.cu"} <= csrc
+            "bilinear_tap.cu", "point_lights.cu", "pcf_window.cu",
+            "pcf_window_table.cu"} <= csrc
+    # Every kernel registered with its wrapper has a C entry point bound.
+    from zeldaengine_tpu_torch.ops import KERNEL_WRAPPERS, _build
+
+    assert len(KERNEL_WRAPPERS) == 8
+    for name in KERNEL_WRAPPERS:
+        assert "zk_" + name in _build._SIGNATURES
 
 
 def _groups():

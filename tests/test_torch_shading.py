@@ -62,10 +62,17 @@ def test_direct_lighting_unrolled_16_point_lights(px, views):
         tv.dir_lights, int(tv.lights_count[0]), tv.point_lights,
         int(tv.lights_count[1]), tv.spot_lights, int(tv.lights_count[2]))
     _close(got, want, atol=1e-5, rtol=5e-5)
-    with pytest.raises(NotImplementedError, match="K5"):
-        tl.direct_lighting(
-            *(T(px[k]) for k in args[:5]), T(ndotv), T(px["shadow"]),
-            tv.dir_lights, 1, tv.point_lights, 16, pallas_points=())
+    # The tiled loop over lists that hold all 16 lights in every tile gives
+    # the same sum (the lists a cull would make are tested in
+    # test_torch_point_lights.py).
+    n_ty = -(-HW[0] // 8)
+    idx = torch.arange(16, dtype=torch.int32).expand(n_ty, 1, 16)
+    cnt = torch.full((n_ty, 1), 16, dtype=torch.int32)
+    tiled = tl.direct_lighting(
+        *(T(px[k]) for k in args[:5]), T(ndotv), T(px["shadow"]),
+        tv.dir_lights, int(tv.lights_count[0]), tv.point_lights, 16,
+        tiled_points=(idx, cnt, 8, HW[1]))
+    _close(tiled, want, atol=1e-5, rtol=5e-5)
 
 
 def test_spot_lights_match_jax(px):

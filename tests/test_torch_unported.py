@@ -18,7 +18,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def frame_args():
-    cfg = TEST_CONFIG.replace(point_light_kernel="unroll")
+    cfg = TEST_CONFIG
     scene, meta, world = build_demo_scene(cfg, grass=10, rocks=2,
                                           device="cpu")
     view = build_view_state(world, cfg, device="cpu")
@@ -29,22 +29,20 @@ def frame_args():
 # A dict changes the config; a string names a change of view, scene, meta
 # or band (see _apply).
 _UNPORTED = {
-    "point_lights": [
-        (dict(point_light_kernel="auto"), "K5"),
-        (dict(point_light_kernel="pallas"), "K5"),
-        ("tiled_lights", "cull_point_lights_tiled"),
-    ],
     "raster_options": [
         (dict(compact_tris=512), "compact_setup"),
         (dict(compact_tris_shadow=512), "compact_setup"),
         (dict(pair_align=True), "align"),
         (dict(raster_early_out=True), "early-out"),
     ],
+    # The PCF variants without a kernel (the others are ported).
     "pcf_backends": [
-        (dict(pcf_backend="packed"), "K6-K8"),
-        (dict(pcf_backend="pallas"), "K6-K8"),
-        (dict(pcf_backend="window_roll"), "K6-K8"),
-        (dict(pcf_backend="half"), "K6-K8"),
+        (dict(pcf_backend="packed_y4"), "A9"),
+        (dict(pcf_backend="packed_y8"), "A9"),
+        (dict(pcf_backend="packed4"), "A9"),
+        (dict(pcf_backend="packed16"), "A9"),
+        (dict(pcf_backend="window1"), "A9"),
+        (dict(pcf_backend="half_y4"), "A9"),
     ],
     "passes": [
         (dict(env_merge=True), "envtap"),
@@ -81,8 +79,6 @@ def _apply(change, scene, view, meta, cfg):
         kw = dict(y0=0, rows=64, full_frame=False)
     elif change == "no_cube_const":
         scene = scene._replace(cube_const=None)
-    elif change == "tiled_lights":
-        view = view._replace(point_lights=torch.zeros((128, 4, 4)))
     else:
         value = {"has_forward": True, "has_meshlets": True,
                  "tex_channels": (0, 1, 2)}[change]

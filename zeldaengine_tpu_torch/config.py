@@ -151,9 +151,14 @@ class EngineConfig:
     # default: changes output (not bit-exact to the full-res tap).
     reflection_half: bool = False
     # PCF backend: "auto"/"vmem" = the 25-tap kernel (exact tap-for-tap
-    # everywhere); "exact" = the plain 25-gather version on any device.
-    # The JAX package's other backends ("packed*", "pallas", "half*",
-    # "window*") are not ported yet.
+    # everywhere); "exact" = the plain 25-gather version on any device;
+    # "packed"/"packed_b" = plain row-table filters and "packed_roll"/
+    # "window_roll" = the same over kernel-built window tables (all
+    # exact); "half"/"half_nearest"/"half_wr" = half resolution + 2x
+    # upsample (one tap quantum off along penumbra edges); "pallas" = the
+    # windowed kernel (taps clamp to a per-tile window: approximate).
+    # "packed_y4/8", "packed4/8/16", "window1" and "half_y4" are not
+    # ported yet.
     pcf_backend: str = "auto"
     pcf_window: int = 256  # windowed-backend shadow window (texels)
     # "vmem" backend window rows / unfit-block recompute cap of the JAX
@@ -183,9 +188,14 @@ class EngineConfig:
     light_tile_w: int = 128
     # Engage tiled culling at this point-light TABLE CAPACITY.
     tiled_lights_min: int = 65
-    # Point-light evaluation backend. "pallas"/"auto": the tile-restricted
-    # point-light kernel once the table holds >= point_kernel_min slots
-    # (not ported yet). "unroll": the plain loop over the light table.
+    # Point-light evaluation backend. "pallas"/"auto": lights culled to
+    # (point_block_h x 128) tiles and shaded by the point-light kernel once
+    # the table holds >= point_kernel_min slots and the width is a
+    # multiple of 128. The JAX package's "auto" does so on an accelerator
+    # only; the port's device is the card, so "auto" does so on every
+    # device (CPU tensors take the kernel's plain version). "unroll": the
+    # plain loop over the light table, or the plain tiled loop once the
+    # table holds >= tiled_lights_min slots.
     point_light_kernel: str = "auto"
     point_block_h: int = 40
     point_kernel_min: int = 4

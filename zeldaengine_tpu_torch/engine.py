@@ -57,8 +57,7 @@ class Engine:
     ):
         self.device = require_device(device)
         self.config = config or EngineConfig(
-            frames_in_flight=1, present_mode="fifo",
-            point_light_kernel="unroll")
+            frames_in_flight=1, present_mode="fifo")
         if self.config.frames_in_flight != 1 \
                 or self.config.present_mode != "fifo":
             raise NotImplementedError(
@@ -141,8 +140,7 @@ def main(argv=None) -> None:
 
     logging.basicConfig(level=logging.INFO)
     config = EngineConfig(width=args.width, height=args.height,
-                          frames_in_flight=1, present_mode="fifo",
-                          point_light_kernel="unroll")
+                          frames_in_flight=1, present_mode="fifo")
     world = World(file_path=args.world).load() if args.world else None
     engine = Engine(config=config, world=world, asset_roots=args.assets,
                     device=args.device)

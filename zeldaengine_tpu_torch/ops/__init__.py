@@ -25,6 +25,21 @@ from zeldaengine_tpu_torch.ops.window_tap import (
     sample_base_window,
     sample_base_window_plain,
 )
+from zeldaengine_tpu_torch.ops.lighting_cuda import (
+    point_lighting,
+    point_lighting_plain,
+)
+from zeldaengine_tpu_torch.ops.pcf_window import (
+    compute_pcf_pallas,
+    pcf_window_taps,
+    pcf_window_taps_plain,
+)
+from zeldaengine_tpu_torch.ops.pcf_tables import (
+    build_pcf_window_table,
+    build_pcf_window_table_plain,
+    build_pcf_window2d_table,
+    build_pcf_window2d_table_plain,
+)
 
 # The hand-written kernels, by the name of their C entry point (minus the
 # ``zk_`` prefix), with the wrapper that launches each. Every wrapper
@@ -35,6 +50,10 @@ KERNEL_WRAPPERS = {
     "pair_raster_fused": rasterize_pairs_fused,
     "pcf_taps": compute_pcf_vmem,
     "bilinear_tap": sample_base_window,
+    "point_lights": point_lighting,
+    "pcf_window": pcf_window_taps,
+    "pcf_window_table": build_pcf_window_table,
+    "pcf_window2d_table": build_pcf_window2d_table,
 }
 
 

@@ -126,6 +126,17 @@ _SIGNATURES = {
     "zk_pcf_taps": [_VP, _I, _I, _VP, _VP, _I, _I, _F, _F, _VP],
     # planes, channels, size, uv, active, out, n_pixels, stream
     "zk_bilinear_tap": [_VP, _I, _I, _VP, _VP, _VP, _I, _VP],
+    # acc, diffuse_color, n, p, v, roughness, ndotv, lights, tile_idx,
+    # tile_cnt, k_max, height, width, block_h, out, stream
+    "zk_point_lights": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                        _I, _I, _I, _I, _VP, _VP],
+    # sm_padded, py_dim, px_dim, origins, fx, fy, zcmp, inrange, out,
+    # height, width, tile_h, tile_w, win, radius, scale, stream
+    "zk_pcf_window": [_VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                      _I, _I, _I, _F, _VP],
+    # shadowmap, dim_y, dim_x, lo_x, lo_y, w_y, out, stream
+    "zk_pcf_window_table": [_VP, _I, _I, _I, _I, _I, _VP, _VP],
+    "zk_pcf_window2d_table": [_VP, _I, _I, _I, _I, _I, _VP, _VP],
 }
 
 

@@ -3,16 +3,21 @@
 Direct (Disney diffuse + GGX specular per light), indirect (Lambert * AO *
 0.3 * shadow), and IBL reflection (refract-vector cubemap lookup, Lazarov
 env BRDF, x10 intensity). Vectorized over pixel grids; the per-light loops
-are plain Python loops over the light tables.
+are plain Python loops over the light tables. Point lights can instead be
+culled to screen tiles (``cull_point_lights_tiled``) and shaded per tile,
+by the plain tiled loop (``_point_lighting_tiled``) or by kernel
+``point_lights`` (``ops/lighting_cuda.py``).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from zeldaengine_tpu_torch.ops import pbr
+from zeldaengine_tpu_torch.ops.lighting_cuda import point_lighting
 from zeldaengine_tpu_torch.ops.texture import cube_direction_to_face_uv
 
 
@@ -30,8 +35,8 @@ def direct_lighting(
     n_point,  # int
     spot_lights=None,  # (Ls, 4, 4) or None
     n_spot=None,  # int
-    tiled_points=None,
-    pallas_points=None,
+    tiled_points=None,  # (tile_idx, tile_cnt, tile_h, tile_w) or None
+    pallas_points=None,  # (tile_idx, tile_cnt, block_h, backend) or None
 ):
     """Sum of the light loops (directional applies the shadow factor,
     point lights do not - Base.frag:86 vs :98).
@@ -45,12 +50,12 @@ def direct_lighting(
     JAX package evaluates every capacity slot and multiplies dead slots by
     0.0; adding that exact zero changes nothing, so dead slots are simply
     not evaluated here.
+
+    ``pallas_points`` sends the point lights through kernel
+    ``point_lights`` (culled lists of (block_h, 128) blocks, accumulated
+    onto the directional partial sum); ``tiled_points`` through the plain
+    tiled loop, whose sum is added after.
     """
-    if tiled_points is not None or pallas_points is not None:
-        raise NotImplementedError(
-            "culled point-light lists (the tiled loop and the point-light "
-            "kernel) are not ported yet (ROADMAP.md B: K5 "
-            "ops/lighting_pallas.py::_point_kernel)")
 
     def bxdf_times_radiance(light, kind: str):
         if kind == "dir":
@@ -93,12 +98,189 @@ def direct_lighting(
     for i in live(dir_lights, n_dir):
         acc = acc + (bxdf_times_radiance(dir_lights[i], "dir")
                      * shadow_factor[..., None])
-    for i in live(point_lights, n_point):
-        acc = acc + bxdf_times_radiance(point_lights[i], "point")
+    if pallas_points is not None:
+        tile_idx, tile_cnt, block_h, backend = pallas_points
+        acc = point_lighting(
+            acc.contiguous(), diffuse_color.contiguous(),
+            roughness.contiguous(), n.contiguous(), p.contiguous(),
+            v.contiguous(), ndotv.contiguous(), point_lights, tile_idx,
+            tile_cnt, block_h=block_h, backend=backend)
+    elif tiled_points is not None:
+        tile_idx, tile_cnt, lt_h, lt_w = tiled_points
+        acc = acc + _point_lighting_tiled(
+            diffuse_color, roughness, n, p, v, ndotv, point_lights,
+            tile_idx, tile_cnt, lt_h, lt_w)
+    else:
+        for i in live(point_lights, n_point):
+            acc = acc + bxdf_times_radiance(point_lights[i], "point")
     if spot_lights is not None:
         for i in live(spot_lights, n_spot):
             acc = acc + bxdf_times_radiance(spot_lights[i], "spot")
     return acc
+
+
+def cull_point_lights_tiled(
+    point_lights,  # (L, 4, 4)
+    n_point: int,
+    view,  # ViewState (view_proj, camera_fov)
+    width: int,
+    height: int,
+    tile_h: int,
+    tile_w: int,
+    k_max: int,
+    y0=0.0,
+    vp_h: Optional[int] = None,
+    world_pos=None,  # (H, W, 3) visible-surface positions (depth bounds)
+    covered=None,  # (H, W) bool: pixels whose world_pos is real
+):
+    """Per-screen-tile point-light lists: conservative projected-sphere vs
+    tile-rect binning, depth bounds, and the first ``k_max`` hits of each
+    tile in ascending light order.
+
+    The reference carries a 512-point-light capacity (ZeldaEngine.cpp:85)
+    and loops all of them per pixel (BaseLighting.frag:182-207); this is
+    the tiled-deferred culling that makes that capacity usable. ``y0`` /
+    ``height`` select a row band of a ``vp_h``-row viewport; the tile grid
+    covers ceil(height / tile_h) rows.
+
+    ``world_pos`` / ``covered`` add depth bounds: each tile's covered
+    pixels bound a world-space AABB, and a light is kept only if its
+    sphere reaches that box. A tile with no covered pixel keeps no light.
+
+    Returns (tile_idx (Ty, Tx, min(K, L)) int32, tile_cnt (Ty, Tx) int32,
+    drops () int32: hits beyond the per-tile cap, summed over tiles).
+    """
+    vp_h = height if vp_h is None else vp_h
+    pos = point_lights[:, 0, :3]
+    radius = torch.clamp_min(point_lights[:, 2, 3], 0.0)
+    vp = view.view_proj
+    # pos @ view_proj[:3, :3].T + view_proj[:3, 3], as fp32 multiply-adds
+    # in index order (no matmul: no TF32 on the card).
+    clip = (pos[:, 0, None] * vp[:3, 0] + pos[:, 1, None] * vp[:3, 1]
+            + pos[:, 2, None] * vp[:3, 2]) + vp[:3, 3]
+    w = (pos[:, 0] * vp[3, 0] + pos[:, 1] * vp[3, 1]
+         + pos[:, 2] * vp[3, 2]) + vp[3, 3]
+    safe_w = torch.clamp_min(torch.abs(w), 1e-6)
+    signed_w = torch.where(w > 0, safe_w, -safe_w)
+    cx = (clip[:, 0] / signed_w * 0.5 + 0.5) * width
+    cy = (clip[:, 1] / signed_w * 0.5 + 0.5) * vp_h
+    # Conservative screen radius from the projection's focal length; the
+    # aspect and y pixel scale are the full viewport's.
+    f = 1.0 / torch.tan(torch.deg2rad(view.camera_fov) * 0.5)
+    aspect = width / vp_h
+    rx = radius * (f / aspect) / safe_w * 0.5 * width
+    ry = radius * f / safe_w * 0.5 * vp_h
+    # Behind or crossing the camera plane: kept everywhere.
+    near_cam = w < radius + 0.1
+    zero = torch.zeros_like(cx)
+    lx0 = torch.where(near_cam, zero, cx - rx)
+    lx1 = torch.where(near_cam, zero + float(width), cx + rx)
+    ly0 = torch.where(near_cam, zero, cy - ry)
+    ly1 = torch.where(near_cam, zero + float(vp_h), cy + ry)
+
+    dev = point_lights.device
+    n_ty = -(-height // tile_h)
+    n_tx = width // tile_w
+    tx = torch.arange(n_tx, dtype=torch.float32, device=dev) * tile_w
+    ty = (torch.arange(n_ty, dtype=torch.float32, device=dev) * tile_h
+          + float(y0))
+    ox = (lx1[:, None] >= tx[None, :]) & (lx0[:, None] <= tx[None, :] + tile_w)
+    oy = (ly1[:, None] >= ty[None, :]) & (ly0[:, None] <= ty[None, :] + tile_h)
+    live = torch.arange(point_lights.shape[0], device=dev) < int(n_point)
+    mask = oy[:, :, None] & ox[:, None, :] & live[:, None, None]  # (L,Ty,Tx)
+
+    if world_pos is not None:
+        big = 3.0e38
+        pad_rows = n_ty * tile_h - world_pos.shape[0]
+        cov = covered if covered is not None else torch.ones(
+            world_pos.shape[:2], dtype=torch.bool, device=dev)
+        wp = world_pos
+        if pad_rows:
+            wp = torch.nn.functional.pad(wp, (0, 0, 0, 0, 0, pad_rows))
+            cov = torch.nn.functional.pad(cov, (0, 0, 0, pad_rows))
+        p5 = wp.reshape(n_ty, tile_h, n_tx, tile_w, 3)
+        c4 = cov.reshape(n_ty, tile_h, n_tx, tile_w)
+        c5 = c4[..., None]
+        lo_b = torch.where(c5, p5, big).amin(dim=(1, 3))  # (Ty, Tx, 3)
+        hi_b = torch.where(c5, p5, -big).amax(dim=(1, 3))
+        any_cov = c4.any(dim=3).any(dim=1)
+        pc = pos[:, None, None, :]
+        gap = torch.clamp_min(
+            torch.maximum(lo_b[None] - pc, pc - hi_b[None]), 0.0)
+        dist2 = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]
+                 + gap[..., 2] * gap[..., 2])
+        reach = dist2 <= (radius * radius)[:, None, None]
+        mask = mask & reach & any_cov[None]
+    mask = torch.movedim(mask, 0, -1)  # (Ty, Tx, L)
+    # Hits first, each group in ascending light order (stable), capped.
+    order = torch.sort((~mask).to(torch.uint8), dim=-1, stable=True).indices
+    tile_idx = order[..., :k_max].to(torch.int32).contiguous()
+    hits = mask.sum(-1)
+    tile_cnt = torch.clamp_max(hits, k_max).to(torch.int32).contiguous()
+    drops = torch.clamp_min(hits - k_max, 0).sum().to(torch.int32)
+    return tile_idx, tile_cnt, drops
+
+
+def _point_lighting_tiled(
+    diffuse_color, roughness, n, p, v, ndotv,
+    point_lights, tile_idx, tile_cnt, tile_h: int, tile_w: int,
+):
+    """Shade each pixel with its tile's culled light list: a loop over the
+    K slots up to the largest count; slot k's light parameters are
+    gathered per tile and broadcast over the tile's pixels, and slots at
+    or past a tile's count are multiplied by 0.0 (the JAX package's
+    arithmetic). Row counts that do not divide ``tile_h`` are padded to
+    the tile grid and cropped after. Returns the point-light sum alone."""
+    height, width = diffuse_color.shape[:2]
+    n_ty, n_tx = tile_idx.shape[:2]
+    k_max = tile_idx.shape[2]
+    pad_rows = n_ty * tile_h - height
+    if pad_rows:
+        def padr(a):
+            return torch.nn.functional.pad(
+                a, (0, 0) * (a.ndim - 1) + (0, pad_rows))
+
+        return _point_lighting_tiled(
+            padr(diffuse_color), padr(roughness), padr(n), padr(p),
+            padr(v), padr(ndotv), point_lights, tile_idx, tile_cnt,
+            tile_h, tile_w)[:height]
+
+    def t5(a, c):
+        return a.reshape(n_ty, tile_h, n_tx, tile_w, c)
+
+    dc5 = t5(diffuse_color, 3)
+    r5 = t5(roughness, 1)[..., 0]
+    n5 = t5(n, 3)
+    p5 = t5(p, 3)
+    v5 = t5(v, 3)
+    nv5 = t5(ndotv, 1)[..., 0]
+
+    def b(x):  # (Ty, Tx) or (Ty, Tx, 3) -> tile-broadcast shape
+        if x.ndim == 2:
+            return x[:, None, :, None]
+        return x[:, None, :, None, :]
+
+    acc = torch.zeros((n_ty, tile_h, n_tx, tile_w, 3), dtype=torch.float32,
+                      device=diffuse_color.device)
+    # No tile holds more than max(tile_cnt) lights: the slots past it are
+    # all-masked work (one host read of the count).
+    k_dyn = min(int(tile_cnt.max()), k_max) if tile_cnt.numel() else 0
+    for k in range(k_dyn):
+        lt = point_lights[tile_idx[:, :, k].long()]  # (Ty, Tx, 4, 4)
+        on = (k < tile_cnt).to(torch.float32)[:, None, :, None]
+        l_dir = pbr.normalize(b(lt[..., 0, :3]) - p5)
+        h = pbr.normalize(v5 + l_dir)
+        ldoth = pbr.saturate(torch.sum(l_dir * h, -1))
+        ndoth = pbr.saturate(torch.sum(n5 * h, -1))
+        ndotl = pbr.saturate(torch.sum(n5 * l_dir, -1))
+        dif, spec = pbr.default_lit_bxdf(dc5, r5, ldoth, nv5, ndotl, ndoth)
+        radiance = pbr.apply_point_light(
+            b(lt[..., 0, :3]), b(lt[..., 1, :3]),
+            b(lt[..., 1, 3]).broadcast_to(ndotl.shape),
+            b(lt[..., 2, 3]).broadcast_to(ndotl.shape),
+            p5, n5)
+        acc = acc + radiance * (dif + spec[..., None]) * on[..., None]
+    return acc.reshape(height, width, 3)
 
 
 def reflection_color(base_color, metallic, roughness, n, v, ndotv, ao,

@@ -12,10 +12,13 @@ This is the slice of the JAX package's ``passes/frame.py`` that a
 full-frame, single-device deferred frame of an untextured scene runs:
 vertex stage -> shadow raster (kernel ``pair_raster``) -> fused GBuffer
 raster (``pair_raster_fused``) -> constant-slot materials -> 25-tap PCF
-(``pcf_taps``) -> directional + unrolled point lights -> constant-lod cube
-reflection -> analytic skydome (``bilinear_tap``). Everything else the JAX
-package's frame can do raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item; nothing is silently served by another path.
+(``pcf_taps``; or an opt-in backend: ``pcf_window``, the window tables of
+``pcf_window_table`` / ``pcf_window2d_table``, or a plain filter) ->
+directional light + point lights culled to screen tiles (``point_lights``;
+or the plain loop / tiled loop) -> constant-lod cube reflection ->
+analytic skydome (``bilinear_tap``). Everything else the JAX package's
+frame can do raises ``NotImplementedError`` naming its ``ROADMAP.md``
+item; nothing is silently served by another path.
 
 Every op is issued on the current CUDA stream in order: the stream is the
 dependency graph.
@@ -33,8 +36,10 @@ from zeldaengine_tpu_torch.math.color import gamma_correct
 from zeldaengine_tpu_torch.math.transforms import (
     apply_mat4_h, apply_mat4_point)
 from zeldaengine_tpu_torch.ops import pbr
-from zeldaengine_tpu_torch.ops.lighting import shade_pixels
+from zeldaengine_tpu_torch.ops.lighting import (
+    cull_point_lights_tiled, shade_pixels)
 from zeldaengine_tpu_torch.ops.pcf_cuda import compute_pcf_vmem
+from zeldaengine_tpu_torch.ops.pcf_window import compute_pcf_pallas
 from zeldaengine_tpu_torch.ops.rasterize import _pixel_grid, triangle_setup
 from zeldaengine_tpu_torch.ops.rasterize_cuda import (
     build_pairs,
@@ -42,7 +47,14 @@ from zeldaengine_tpu_torch.ops.rasterize_cuda import (
     rasterize_pairs,
     rasterize_pairs_fused,
 )
-from zeldaengine_tpu_torch.ops.shadow import compute_pcf, compute_shadow_coord
+from zeldaengine_tpu_torch.ops.shadow import (
+    compute_pcf,
+    compute_pcf_half,
+    compute_pcf_packed,
+    compute_pcf_packed_roll,
+    compute_pcf_window_roll,
+    compute_shadow_coord,
+)
 from zeldaengine_tpu_torch.ops.window_tap import sample_base_window
 from zeldaengine_tpu_torch.passes.gbuffer import (
     GBuffer,
@@ -52,7 +64,9 @@ from zeldaengine_tpu_torch.passes.gbuffer import (
 from zeldaengine_tpu_torch.scene.scenebuild import GpuScene, SceneMeta
 
 _RASTER_BACKENDS = ("auto", "cuda", "torch")
-_PCF_BACKENDS = ("auto", "vmem", "exact")
+_PCF_BACKENDS = ("auto", "vmem", "exact", "packed", "packed_b",
+                 "packed_roll", "window_roll", "half", "half_nearest",
+                 "half_wr", "pallas")
 
 
 def unported_reasons(scene: GpuScene, view, meta: SceneMeta,
@@ -65,18 +79,6 @@ def unported_reasons(scene: GpuScene, view, meta: SceneMeta,
         if cond:
             why.append(f"{what} is not ported yet (ROADMAP.md {item})")
 
-    n_point = view.point_lights.shape[0]
-    no(config.point_light_kernel != "unroll"
-       and n_point >= config.point_kernel_min,
-       f"point_light_kernel={config.point_light_kernel!r} with a "
-       f"{n_point}-slot point-light table (the point-light kernel; pass "
-       "point_light_kernel='unroll')",
-       "B: K5 ops/lighting_pallas.py::_point_kernel")
-    no(config.point_light_kernel == "unroll"
-       and n_point >= config.tiled_lights_min,
-       f"tiled point-light culling ({n_point}-slot table >= "
-       f"tiled_lights_min={config.tiled_lights_min})",
-       "A4: ops/lighting.py::cull_point_lights_tiled")
     no(meta.has_forward, "the forward pass (meta.has_forward)",
        "A5: passes/frame.py forward_shade")
     no(meta.has_meshlets, "meshlet culling (meta.has_meshlets)",
@@ -113,8 +115,8 @@ def unported_reasons(scene: GpuScene, view, meta: SceneMeta,
     no(not full_frame, "row bands (full_frame=False)",
        "A8: parallel/tiles.py")
     no(config.pcf_backend not in _PCF_BACKENDS,
-       f"pcf_backend={config.pcf_backend!r}",
-       "A9: ops/shadow.py variants, B: K6-K8")
+       f"pcf_backend={config.pcf_backend!r} (a PCF variant without a "
+       "kernel)", "A9: ops/shadow.py variants")
     return why
 
 
@@ -215,27 +217,61 @@ def _raster_depth(setup, dim, config: EngineConfig):
 
 def _shadow_factor(shadowmap, world_pos, view, config: EngineConfig,
                    valid=None):
+    """The deferred shadow factor through ``config.pcf_backend``: "auto" /
+    "vmem" the tap kernel; "packed" / "packed_b", "packed_roll",
+    "window_roll" exact row- or window-table filters (the last two over
+    the tables of the window-table kernels, on maps whose width is a
+    multiple of 128); "half*" half resolution + upsample; "pallas" the
+    windowed kernel (approximate by design); "exact" and every fallback
+    the plain 25-gather filter."""
     sc = compute_shadow_coord(view.shadow_space, world_pos)
-    if config.pcf_backend in ("auto", "vmem") and sc.ndim == 3:
+    kw = dict(radius=config.pcf_radius, scale=config.pcf_scale,
+              bias=config.shadow_bias)
+    backend = config.pcf_backend
+    dim_ok = config.shadowmap_dim % 128 == 0
+    if backend in ("half", "half_nearest", "half_wr") and sc.ndim == 3:
+        return compute_pcf_half(
+            shadowmap, sc, **kw,
+            upsample="nearest" if backend == "half_nearest" else "linear",
+            inner="window_roll" if backend == "half_wr" else "packed",
+            backend=config.raster)
+    if backend == "window_roll" and dim_ok:
+        return compute_pcf_window_roll(shadowmap, sc, **kw,
+                                       backend=config.raster)
+    if backend == "packed_roll" and dim_ok:
+        return compute_pcf_packed_roll(shadowmap, sc, **kw,
+                                       backend=config.raster)
+    if backend in ("auto", "vmem") and sc.ndim == 3:
         # The tap kernel: equal to compute_pcf at every in-range pixel.
         # Uncovered pixels (whose world_pos is the GBuffer default,
         # overwritten by sky downstream) read 1.0.
-        kw = dict(radius=config.pcf_radius, scale=config.pcf_scale,
-                  bias=config.shadow_bias, active=valid)
         sc = sc.contiguous()
-        sf, _overflow = compute_pcf_vmem(shadowmap, sc,
+        sf, _overflow = compute_pcf_vmem(shadowmap, sc, active=valid,
                                          backend=config.raster, **kw)
         if valid is not None:
             sf = torch.where(valid, sf, torch.ones_like(sf))
         return sf
-    return compute_pcf(
-        shadowmap, sc, radius=config.pcf_radius, scale=config.pcf_scale,
-        bias=config.shadow_bias,
-    )
+    if backend in ("packed", "packed_b"):
+        return compute_pcf_packed(shadowmap, sc, **kw,
+                                  batch_rows=backend == "packed_b")
+    if backend == "pallas" and sc.ndim == 3:
+        h, w = sc.shape[:2]
+        ph = _pad_up(h, config.tile_h)
+        pw = _pad_up(w, max(config.tile_w, 128))
+        if ph != h or pw != w:
+            sc = torch.nn.functional.pad(sc, (0, 0, 0, pw - w, 0, ph - h))
+            if valid is not None:
+                valid = torch.nn.functional.pad(valid, (0, pw - w, 0, ph - h))
+        out = compute_pcf_pallas(
+            shadowmap, sc, **kw, tile_h=config.tile_h, tile_w=config.tile_w,
+            win=config.pcf_window, valid=valid, backend=config.raster)
+        return out[:h, :w]
+    return compute_pcf(shadowmap, sc, **kw)
 
 
 def resolve_lighting(gbuf: GBuffer, shadowmap, scene: GpuScene, view,
-                     config: EngineConfig):
+                     config: EngineConfig, tiled_points=None,
+                     pallas_points=None):
     """BaseLighting.frag main(): unpack GBuffer, light (debug view 0).
     Returns (color (H, W, 3), shadow factor (H, W))."""
     base_color = gbuf.gbuffer_c[..., :3]
@@ -252,6 +288,7 @@ def resolve_lighting(gbuf: GBuffer, shadowmap, scene: GpuScene, view,
         base_color, metallic, roughness, normal, ao, world_pos,
         shadow_factor, view, scene.cube_atlas, config.cubemap_size,
         cube_pair1=scene.cube_pair1, cube_const=scene.cube_const,
+        tiled_points=tiled_points, pallas_points=pallas_points,
     )
     return gamma_correct(lit["final"] * mask[..., None]), shadow_factor
 
@@ -380,6 +417,29 @@ def render_rows(
     width = config.width
     height = config.height
 
+    # ---- point lights culled to screen tiles. The JAX package's "auto"
+    # takes the point-light kernel on an accelerator only; the port's
+    # device is the card, so "auto" takes it on every device (the plain
+    # version serves CPU tensors). "unroll" is the plain loop, or the
+    # tiled loop once the table reaches tiled_lights_min slots.
+    n_slots = view.point_lights.shape[0]
+    use_kernel_points = (
+        config.point_light_kernel in ("pallas", "auto")
+        and n_slots >= config.point_kernel_min and width % 128 == 0)
+    use_tiled = (not use_kernel_points
+                 and n_slots >= config.tiled_lights_min
+                 and width % config.light_tile_w == 0)
+    light_drops = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def culled_lights(world_pos, covered, tile_h, tile_w):
+        nonlocal light_drops
+        tile_idx, tile_cnt, drops = cull_point_lights_tiled(
+            view.point_lights, int(view.lights_count[1]), view, width,
+            height, tile_h, tile_w, config.max_tile_lights,
+            vp_h=config.height, world_pos=world_pos, covered=covered)
+        light_drops = light_drops + drops
+        return tile_idx, tile_cnt
+
     # ---- vertex stage (Base.vert / BaseInstanced.vert / Shadowmap*.vert)
     world = apply_mat4_point(view.model, scene.pair_pos)
     n1 = apply_mat4_point(view.model, pbr.normalize(scene.pair_nrm))
@@ -438,9 +498,21 @@ def render_rows(
             scene, planes_d, config, var_ch=meta.tex_channels,
             flat_normal=meta.flat_normal)
         gbuf = pack_gbuffer(attrs_d, depth_d)
-        # ---- 4a. deferred lighting (fullscreen, no depth test)
+        # ---- 4a. deferred lighting (fullscreen, no depth test); the
+        # lights are culled against the GBuffer's own visible surface.
+        tiled_points = pallas_points = None
+        if use_kernel_points:
+            pallas_points = culled_lights(
+                attrs_d.world_pos, attrs_d.covered, config.point_block_h,
+                128) + (config.point_block_h, config.raster)
+        elif use_tiled:
+            tiled_points = culled_lights(
+                attrs_d.world_pos, attrs_d.covered, config.light_tile_h,
+                config.light_tile_w) + (config.light_tile_h,
+                                        config.light_tile_w)
         color, shadow_factor = resolve_lighting(
-            gbuf, shadowmap, scene, view, config)
+            gbuf, shadowmap, scene, view, config,
+            tiled_points=tiled_points, pallas_points=pallas_points)
         pair_overflow = pair_overflow + pairs_d.overflow
         live_pairs["gbuffer"] = pairs_d.gbounds[1]
     else:
@@ -466,8 +538,11 @@ def render_rows(
         "forward_tri_id": tid_f,
         # Beyond the JAX package's aux (device scalars; reading them
         # synchronises): live pairs dropped by the max_pairs caps, the
-        # live pair count of each raster pass, the deferred shadow factor.
+        # live pair count of each raster pass, the deferred shadow factor,
+        # point lights dropped by the per-tile cap (the JAX package's
+        # validation counter "light_drops").
         "pair_overflow": pair_overflow,
+        "light_drops": light_drops,
         "live_pairs": live_pairs,
         "shadow_factor": shadow_factor,
     }
