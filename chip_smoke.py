@@ -9,7 +9,10 @@ rocks, 16 point lights culled to 40x128 blocks and shaded by the
 point-light kernel, tiles 64x32); the same frame with 512 point lights;
 and one frame through each opt-in PCF backend that has a kernel. Every
 kernel is replayed on the inputs a frame gave it and held against its
-plain PyTorch version on the card; 256x256 frames rendered through the
+plain PyTorch version on the card, and timed as device time (its calls
+replayed from a CUDA graph, ``ms``) and as events around eager calls
+(``eager_ms``, which includes the host's cost per call where that is the
+larger); 256x256 frames rendered through the
 kernels are held against the same frames rendered through the plain
 versions, and the engine shell presents two 1080p frames. Each phase
 prints one JSON line; the last line is ``{"ok": true, "device": {...}}``.
@@ -141,6 +144,40 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one ``fn`` call: ``reps`` calls captured in one CUDA
+    graph, the median of three replays over ``reps``. The host's cost of
+    each call (Python wrapper, argument checks, allocation) is outside the
+    number, which ``cuda_ms`` includes wherever the host enqueues slower
+    than the card runs."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
+def kernel_times(call, reps: int) -> dict:
+    """A kernel's times on the card: ``ms`` (also ``kernel_ms``) from
+    ``graph_ms``, ``eager_ms`` from ``cuda_ms``."""
+    ms = graph_ms(call, reps)
+    return dict(ms=ms, kernel_ms=ms, eager_ms=cuda_ms(call, reps))
+
+
 def golden(got: torch.Tensor, want: torch.Tensor) -> dict:
     """The repo's whole-frame criterion (tests/test_golden.py): fewer than
     1 % of values off by more than 4/255 and median difference <= 1/255."""
@@ -241,18 +278,49 @@ def needed_tests(pairs: rc.PairedTriangles, setup, height, width, tile_h,
     return int((nx * ny).double().sum()), int(tile.numel()) * tile_h * tile_w
 
 
-def raster_bound(pairs, setup, height, width, kw, out_words: int) -> dict:
-    tests, kernel_tests = needed_tests(pairs, setup, height, width,
-                                       kw["tile_h"], kw["tile_w"])
+def strip_walk_load(pairs, height, width, kw) -> dict:
+    """The tests kernel pair_raster_fused makes (rc.strip_walk_tests), and
+    how evenly they fall on the warps of a block: the block walks its
+    chunks in step, so a crowded strip holds the other warps."""
+    per = rc.strip_walk_tests(pairs, height, width, kw["tile_h"],
+                              kw["tile_w"], kw.get("sub_rows", 8),
+                              kw.get("y_row", -1))
+    per_tile = per.sum(1)
+    busy = per[per > 0].double()
+    hist = torch.bincount(torch.floor(torch.log2(busy)).long()) \
+        if busy.numel() else torch.zeros(0)
+    return dict(
+        tests=int(per.sum()),
+        # share of warp slots doing tests if each block ran at the pace of
+        # its busiest warp (1.0: perfectly even)
+        warp_share_at_slowest_pace=float(
+            per.sum().double() / (per.amax(1).double().sum() * per.shape[1])),
+        tile_tests_max_over_mean=float(
+            per_tile.max().double() / per_tile.double().mean()),
+        warp_tests_log2_histogram=hist.tolist())
+
+
+def raster_bound(pairs, setup, height, width, kw, out_words: int,
+                 walk: dict = None) -> dict:
+    """``walk``: the strip walk's load (kernel pair_raster_fused); without
+    it the kernel tests every pixel of the tile against every pair
+    (kernel pair_raster)."""
+    tests, all_tests = needed_tests(pairs, setup, height, width,
+                                    kw["tile_h"], kw["tile_w"])
+    kernel_tests = walk["tests"] if walk else all_tests
     live = int(pairs.gbounds[1])
     n_bytes = (live * pairs.records.shape[1] * 4 + live * 4
                + (pairs.starts.numel() * 2 + pairs.sstarts.numel() * 2 + 2) * 4
                + height * width * 4 * out_words)
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = tests * OPS_PER_TEST / PEAK_FP32_PER_S * 1e3
+    extra = {} if not walk else dict(
+        pixel_pair_tests_without_skip=all_tests,
+        **{k: v for k, v in walk.items() if k != "tests"})
     emit("bound", pixel_pair_tests_in_bbox=tests,
-         pixel_pair_tests_of_the_kernel=kernel_tests, live_pairs=live,
-         bytes=n_bytes, bytes_ms=t_bytes, operations_ms=t_ops)
+         pixel_pair_tests_of_the_kernel=kernel_tests,
+         kernel_over_bbox=kernel_tests / max(tests, 1), live_pairs=live,
+         bytes=n_bytes, bytes_ms=t_bytes, operations_ms=t_ops, **extra)
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -350,46 +418,70 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     run("pair_raster", "ragged 72x96, tiles 24x32", rc.rasterize_pairs,
         (small, 72, 96), dict(tile_h=24, tile_w=32),
         lambda k, p: compare_raster(k, p, False))
-    ms = cuda_ms(lambda: rc.rasterize_pairs(pairs, ph, pw, backend="cuda",
-                                            **kw), 10)
+    call = lambda: rc.rasterize_pairs(  # noqa: E731
+        pairs, ph, pw, backend="cuda", **kw)
+    times = kernel_times(call, 10)
     plain_ms = cuda_ms(lambda: rc.rasterize_pairs(
         pairs, ph, pw, backend="torch", **kw), 1)
     rows.append(dict(name="pair_raster", route="cuda",
                      **KERNELS["pair_raster"],
                      launches=frame_launches["pair_raster"],
-                     max_abs_err=main["max_abs_err"], ms=ms, kernel_ms=ms,
+                     max_abs_err=main["max_abs_err"], **times,
                      plain_ms=plain_ms,
                      **raster_bound(pairs, setup_sh, ph, pw, kw, out_words=1),
+                     # No PyTorch call rasterizes pair lists.
                      library_ms=None))
 
     # ---- K2 pair_raster_fused
     (fpairs, fh, fw), fkw = captured["pair_raster_fused"]
     check(pairs_gb is fpairs, "GBuffer pairs are not the second build_pairs call")
     cmp_fused = lambda k, p: compare_raster(k, p, True)  # noqa: E731
-    fmain = run("pair_raster_fused", "frame: GBuffer", rc.rasterize_pairs_fused,
-                (fpairs, fh, fw), fkw, cmp_fused)
+    check(fkw["y_row"] >= 0, "the frame's GBuffer pairs carry no strip span")
+    fmain = run("pair_raster_fused", "frame: GBuffer, strip span",
+                rc.rasterize_pairs_fused, (fpairs, fh, fw), fkw, cmp_fused)
+    finit = torch.from_numpy(np.random.default_rng(2).uniform(
+        0.9, 1.0, (fh, fw)).astype(np.float32)).cuda()
+    run("pair_raster_fused", "frame: GBuffer, strip span, init_depth",
+        rc.rasterize_pairs_fused, (fpairs, fh, fw, finit), fkw, cmp_fused)
     for need_uv in (True, False):
         for has_combo in (True, False):
-            sp = random_pairs(
-                5, 400, 72, 96, 24, 32, sort_z=True, ysort_sub_rows=8,
-                extra_w=rc.fused_extra_width(need_uv, has_combo))
-            run("pair_raster_fused",
-                f"ragged 72x96, need_uv={need_uv}, has_combo={has_combo}",
-                rc.rasterize_pairs_fused, (sp, 72, 96),
-                dict(tile_h=24, tile_w=32, texture_size=64, need_uv=need_uv,
-                     has_combo=has_combo, combo_const=3.0), cmp_fused)
-    ms = cuda_ms(lambda: rc.rasterize_pairs_fused(
-        fpairs, fh, fw, backend="cuda", **fkw), 10)
+            extra_w = rc.fused_extra_width(need_uv, has_combo)
+            sp = random_pairs(5, 400, 72, 96, 24, 32, sort_z=True,
+                              ysort_sub_rows=8, extra_w=extra_w)
+            # The span column follows the payload and the z column.
+            spans = (12 + extra_w + 1, -1) if need_uv and has_combo \
+                else (12 + extra_w + 1,)
+            for y_row in spans:
+                run("pair_raster_fused",
+                    f"ragged 72x96, tiles 24x32, need_uv={need_uv}, "
+                    f"has_combo={has_combo}, y_row={y_row}",
+                    rc.rasterize_pairs_fused, (sp, 72, 96),
+                    dict(tile_h=24, tile_w=32, sub_rows=8, y_row=y_row,
+                         texture_size=64, need_uv=need_uv,
+                         has_combo=has_combo, combo_const=3.0), cmp_fused)
+    # Tiles wider than a warp: a lane's pixels lie in two columns.
+    extra_w = rc.fused_extra_width()
+    wide = random_pairs(6, 400, 72, 128, 24, 64, sort_z=True,
+                        ysort_sub_rows=8, extra_w=extra_w)
+    run("pair_raster_fused", "ragged 72x128, tiles 24x64, strip span",
+        rc.rasterize_pairs_fused, (wide, 72, 128),
+        dict(tile_h=24, tile_w=64, sub_rows=8, y_row=12 + extra_w + 1,
+             texture_size=64), cmp_fused)
+    call = lambda: rc.rasterize_pairs_fused(  # noqa: E731
+        fpairs, fh, fw, backend="cuda", **fkw)
+    times = kernel_times(call, 10)
     plain_ms = cuda_ms(lambda: rc.rasterize_pairs_fused(
         fpairs, fh, fw, backend="torch", **fkw), 1)
     rows.append(dict(name="pair_raster_fused", route="cuda",
                      **KERNELS["pair_raster_fused"],
                      launches=frame_launches["pair_raster_fused"],
-                     max_abs_err=fmain["max_abs_err"], ms=ms,
-                     kernel_ms=ms,
+                     max_abs_err=fmain["max_abs_err"], **times,
                      plain_ms=plain_ms,
                      **raster_bound(fpairs, setup_gb, fh, fw, fkw,
-                                    out_words=2 + rc.ATTR_CH),
+                                    out_words=2 + rc.ATTR_CH,
+                                    walk=strip_walk_load(fpairs, fh, fw,
+                                                         fkw)),
+                     # No PyTorch call rasterizes pair lists.
                      library_ms=None))
 
     # ---- K3 pcf_taps (max-abs <= 2e-7: one ulp of the averaged factor)
@@ -410,16 +502,19 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     run("pcf_taps", "ragged 37x53, wrap + out of range, radius 1",
         pcf_cuda.compute_pcf_vmem, (sm_small, wild),
         dict(radius=1, scale=1.5, bias=0.01), cmp_small)
-    ms = cuda_ms(lambda: pcf_cuda.compute_pcf_vmem(
-        sm, sc, backend="cuda", **pkw), 20)
+    call = lambda: pcf_cuda.compute_pcf_vmem(  # noqa: E731
+        sm, sc, backend="cuda", **pkw)
+    times = kernel_times(call, 20)
     plain_ms = cuda_ms(lambda: pcf_cuda.compute_pcf_vmem(
         sm, sc, backend="torch", **pkw), 3)
     n_px = sc.shape[0] * sc.shape[1]
     rows.append(dict(name="pcf_taps", route="cuda", **KERNELS["pcf_taps"],
                      launches=frame_launches["pcf_taps"],
-                     max_abs_err=pmain["max_abs_err"], ms=ms, kernel_ms=ms,
+                     max_abs_err=pmain["max_abs_err"], **times,
                      plain_ms=plain_ms,
                      **bytes_bound(n_px * 20 + sm.numel() * 4),
+                     # No PyTorch call compares 25 wrapped taps against a
+                     # per-pixel depth.
                      library_ms=None))
 
     # ---- K4 bilinear_tap
@@ -436,8 +531,9 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     run("bilinear_tap", "ragged 37x53, no mask",
         window_tap.sample_base_window, (planes_s, uv_s, None, 64), {},
         cmp_small)
-    ms = cuda_ms(lambda: window_tap.sample_base_window(
-        *targs, backend="cuda"), 20)
+    call = lambda: window_tap.sample_base_window(  # noqa: E731
+        *targs, backend="cuda")
+    times = kernel_times(call, 20)
     plain_ms = cuda_ms(lambda: window_tap.sample_base_window(
         *targs, backend="torch"), 3)
     planes, uv = targs[0], targs[1]
@@ -445,7 +541,7 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     rows.append(dict(name="bilinear_tap", route="cuda",
                      **KERNELS["bilinear_tap"],
                      launches=frame_launches["bilinear_tap"],
-                     max_abs_err=tmain["max_abs_err"], ms=ms, kernel_ms=ms,
+                     max_abs_err=tmain["max_abs_err"], **times,
                      plain_ms=plain_ms,
                      **bytes_bound(n_px * (8 + 1 + 4 * planes.shape[0])
                                    + planes.numel() * 4),
@@ -476,9 +572,10 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     run("point_lights", "ragged 1000x1920", lighting_cuda.point_lighting,
         (*[c.contiguous() for c in cut], largs[7], largs[8][:n_by].contiguous(),
          largs[9][:n_by].contiguous()), lkw, cmp_lights)
-    ms = cuda_ms(lambda: lighting_cuda.point_lighting(
-        *largs, backend="cuda", **lkw), 20)
-    ms_512 = cuda_ms(lambda: lighting_cuda.point_lighting(
+    call = lambda: lighting_cuda.point_lighting(  # noqa: E731
+        *largs, backend="cuda", **lkw)
+    times = kernel_times(call, 20)
+    ms_512 = graph_ms(lambda: lighting_cuda.point_lighting(
         *largs512, backend="cuda", **lkw512), 20)
     plain_ms = cuda_ms(lambda: lighting_cuda.point_lighting(
         *largs, backend="torch", **lkw), 2)
@@ -499,7 +596,7 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     rows.append(dict(name="point_lights", route="cuda",
                      **KERNELS["point_lights"],
                      launches=frame_launches["point_lights"],
-                     max_abs_err=lmain["max_abs_err"], ms=ms, kernel_ms=ms,
+                     max_abs_err=lmain["max_abs_err"], **times,
                      plain_ms=plain_ms,
                      bound_ms=max(t_bytes, t_ops),
                      bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -535,8 +632,9 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
         run("pcf_window", f"wild 64x256, map 256, win {win}",
             pcf_window.pcf_window_taps, (sinp, 2, 1.5, 32, 128, swin), {},
             cmp_pcf)
-    ms = cuda_ms(lambda: pcf_window.pcf_window_taps(
-        *wargs, backend="cuda", **wkw), 20)
+    call = lambda: pcf_window.pcf_window_taps(  # noqa: E731
+        *wargs, backend="cuda", **wkw)
+    times = kernel_times(call, 20)
     plain_ms = cuda_ms(lambda: pcf_window.pcf_window_taps(
         *wargs, backend="torch", **wkw), 3)
     radius = wargs[1]
@@ -546,8 +644,9 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     t_ops = n_px * (2 * radius + 1) ** 2 * OPS_PER_TAP / PEAK_FP32_PER_S * 1e3
     rows.append(dict(name="pcf_window", route="cuda", **KERNELS["pcf_window"],
                      launches=frame_launches["pcf_window"],
-                     max_abs_err=wmain["max_abs_err"], ms=ms, kernel_ms=ms,
-                     plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                     max_abs_err=wmain["max_abs_err"], **times,
+                     plain_ms=plain_ms,
+                     bound_ms=max(t_bytes, t_ops),
                      bound_by="bytes" if t_bytes >= t_ops else "operations",
                      # No PyTorch call filters inside per-tile windows.
                      library_ms=None))
@@ -558,6 +657,10 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
         check(torch.equal(k, p), f"tables differ (max-abs {err})")
         return {"max_abs_err": err}
 
+    odd = torch.from_numpy(rng.random((37, 53)).astype(np.float32)).cuda()
+    # D < 8: the 8-wide window wraps the row more than once.
+    tiny = torch.from_numpy(rng.random((5, 5)).astype(np.float32)).cuda()
+    narrow = torch.from_numpy(rng.random((3, 2)).astype(np.float32)).cuda()
     for name, fn, label in (
             ("pcf_window_table", pcf_tables.build_pcf_window_table,
              "frame: pcf_backend=packed_roll"),
@@ -565,18 +668,22 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
              "frame: pcf_backend=window_roll")):
         targs, tkw = captured[name]
         tmain = run(name, label, fn, targs, tkw, cmp_exact)
-        odd = torch.from_numpy(rng.random((37, 53)).astype(np.float32)).cuda()
         run(name, "ragged 37x53 map", fn, (odd,), tkw, cmp_exact)
+        run(name, "5x5 map (wraps twice)", fn, (tiny,), tkw, cmp_exact)
+        run(name, "3x2 map", fn, (narrow,), tkw, cmp_exact)
         if name == "pcf_window2d_table":
             run(name, "half_wr frame", fn,
                 *captured["pcf_window2d_table_half"], cmp_exact)
             run(name, "ragged 37x53, w_y 13", fn, (odd,),
                 dict(lo_x=-3, lo_y=-6, w_y=13), cmp_exact)
         sm_t = targs[0]
-        ms = cuda_ms(lambda: fn(*targs, backend="cuda", **tkw), 20)
+        call = lambda: fn(*targs, backend="cuda", **tkw)  # noqa: E731
+        times = kernel_times(call, 20)
         plain_ms = cuda_ms(lambda: fn(*targs, backend="torch", **tkw), 3)
         out = fn(*targs, backend="cuda", **tkw)
-        library_ms = None
+        # K8: no single call wraps both axes of a 2-D window without an
+        # index as large as the table.
+        timing = dict(times, plain_ms=plain_ms, library_ms=None)
         if name == "pcf_window_table":
             # One index_select of the map's columns is the same table: its
             # (D, D*8) result is the (D*D, 8) table, row-major.
@@ -584,16 +691,22 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
                                        sm_t.device).reshape(-1)
             check(torch.equal(torch.index_select(sm_t, 1, cols).reshape(
                 out.shape), out), "index_select table differs")
-            library_ms = cuda_ms(
-                lambda: torch.index_select(sm_t, 1, cols), 20)
+            library = lambda: torch.index_select(sm_t, 1, cols)  # noqa: E731
+            # The one-thread-per-group design this kernel replaced is K8's
+            # kernel at w_y = 1: each 16-byte group straight from the map.
+            per_group = lambda: pcf_tables._launch(  # noqa: E731
+                "pcf_window2d_table", sm_t, tkw["lo"], 0, 1)
+            check(torch.equal(per_group(), out),
+                  "the per-group design's table differs")
+            timing.update(
+                library_ms=graph_ms(library, 20),
+                library_eager_ms=cuda_ms(library, 20),
+                per_group_design_ms=graph_ms(per_group, 20),
+                per_group_design_eager_ms=cuda_ms(per_group, 20))
         rows.append(dict(name=name, route="cuda", **KERNELS[name],
                          launches=frame_launches[name],
-                         max_abs_err=tmain["max_abs_err"], ms=ms,
-                         kernel_ms=ms, plain_ms=plain_ms,
-                         **bytes_bound(sm_t.numel() * 4 + out.numel() * 4),
-                         # K8: no single call wraps both axes of a 2-D
-                         # window without an index as large as the table.
-                         library_ms=library_ms))
+                         max_abs_err=tmain["max_abs_err"], **timing,
+                         **bytes_bound(sm_t.numel() * 4 + out.numel() * 4)))
     emit("kernels", checks=checks)
     return rows
 
@@ -849,7 +962,8 @@ def phase_engine() -> None:
     """The engine shell, the entry point behind ``python -m
     zeldaengine_tpu_torch.engine``, at its defaults: build the default demo
     world at 1080p, tick twice, check what it presents and that every tick
-    went through K1-K5 once."""
+    went through K1-K5 once; hold K2 at the engine's tiles against its
+    plain version."""
     engine = Engine(EngineConfig(width=1920, height=1080, frames_in_flight=1,
                                  present_mode="fifo"))
     ops.reset_kernel_launch_counts()
@@ -861,9 +975,21 @@ def phase_engine() -> None:
               f"engine presented {img.dtype} {img.shape}")
     check(float(frames[-1].std()) > 5.0, "engine frame is flat")
     check(bool((frames[0] != frames[1]).any()), "the animation stands still")
+    # K2 at the engine's default 32x128 tiles (16 pixels a thread, a lane's
+    # pixels in 4 columns) on a third tick's pairs, against its plain
+    # version, and its device time.
+    with recorded_calls({}) as captured:
+        engine.tick()
+    (pairs, h, w), kw = captured["pair_raster_fused"]
+    k2 = compare_raster(
+        rc.rasterize_pairs_fused(pairs, h, w, backend="cuda", **kw),
+        rc.rasterize_pairs_fused(pairs, h, w, backend="torch", **kw), True)
+    k2.update(tile=(kw["tile_h"], kw["tile_w"]), ms=graph_ms(
+        lambda: rc.rasterize_pairs_fused(pairs, h, w, backend="cuda", **kw),
+        10))
     emit("engine", ticks=2, frame_ms=engine.stats.frame_ms,
          triangles=engine.stats.triangles, launches=launches,
-         mean_level=float(frames[-1].mean()))
+         mean_level=float(frames[-1].mean()), pair_raster_fused=k2)
 
 
 def main() -> None:

@@ -1,7 +1,9 @@
 """Plain version of kernel pair_raster_fused against the Pallas fused
-kernel in interpret mode, on the pair stream the JAX package built (carried
-across by convert.pairs_from_numpy). The CUDA kernel itself is held
-against this plain version on the card by chip_smoke.py."""
+kernel in interpret mode, with and without the kernel's strip-span skip, on
+the pair stream the JAX package built (carried across by
+convert.pairs_from_numpy), and the property that makes the skip exact. The
+CUDA kernel itself is held against this plain version on the card by
+chip_smoke.py."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ from zeldaengine_tpu.ops.rasterize import triangle_setup as j_triangle_setup
 from zeldaengine_tpu.passes import frame as jframe
 from zeldaengine_tpu.passes.view import build_view_state as j_view
 from zeldaengine_tpu.scene.demo import build_demo_scene as j_build
+from zeldaengine_tpu_torch import TEST_CONFIG
 from zeldaengine_tpu_torch.convert import (
     pairs_from_numpy, scene_from_numpy, setup_from_numpy, view_from_numpy)
 from zeldaengine_tpu_torch.math.transforms import (
@@ -44,37 +47,35 @@ def state():
     setup = j_triangle_setup(
         clip[scene.tri_vtx], W, H, two_sided=scene.tri_two_sided,
         valid_mask=scene.tri_valid & scene.tri_deferred)
-    return cfg, scene, view, world, n_world, setup
+    return cfg, scene, view, world, n_world, setup, clip
 
 
-def _run(state, need_uv, has_combo, tile_h, tile_w):
-    cfg, scene, view, world, n_world, setup = state
+def _run(state, need_uv, has_combo, tile_h, tile_w, span=False):
+    """The JAX fused kernel (interpret mode) and the port's plain version
+    on one pair stream; ``span``: the JAX kernel skips by the packed strip
+    span (its ``y_row`` / ``sub_rows`` path), the port's wrapper is given
+    the same column."""
+    cfg, scene, view, world, n_world, setup, _ = state
     extra = jframe._fused_extra(scene, setup, world, n_world,
                                 need_uv=need_uv, need_combo=has_combo)
     jpairs = jp.build_pairs(setup, W, H, tile_h, tile_w, extra=extra,
                             sort_z=True, ysort_sub_rows=8)
+    # The span column follows the payload and the z column.
+    y_row = 12 + extra.shape[1] + 1 if span else -1
     jd, jt, jplanes = jp.rasterize_pairs_fused(
-        jpairs, H, W, tile_h=tile_h, tile_w=tile_w,
-        texture_size=cfg.texture_size, interpret=True, need_uv=need_uv,
-        has_combo=has_combo, combo_const=0.0)
+        jpairs, H, W, tile_h=tile_h, tile_w=tile_w, sub_rows=8,
+        texture_size=cfg.texture_size, interpret=True, y_row=y_row,
+        need_uv=need_uv, has_combo=has_combo, combo_const=0.0)
     pairs = pairs_from_numpy(to_numpy_leaves(jpairs), "cpu")
     td, tt, tplanes = tp.rasterize_pairs_fused(
-        pairs, H, W, tile_h=tile_h, tile_w=tile_w,
-        texture_size=cfg.texture_size, need_uv=need_uv,
+        pairs, H, W, tile_h=tile_h, tile_w=tile_w, sub_rows=8,
+        texture_size=cfg.texture_size, y_row=y_row, need_uv=need_uv,
         has_combo=has_combo, combo_const=0.0)
     return (np.asarray(jd), np.asarray(jt), np.asarray(jplanes),
             td.numpy(), tt.numpy(), tplanes.numpy())
 
 
-@pytest.mark.parametrize("need_uv,has_combo,tile_h,tile_w", [
-    (True, True, 8, 128),
-    (True, False, 16, 32),
-    (False, False, 8, 128),
-])
-def test_plain_fused_matches_pallas_interpret(state, need_uv, has_combo,
-                                              tile_h, tile_w):
-    jd, jt, jpl, td, tt, tpl = _run(state, need_uv, has_combo, tile_h,
-                                    tile_w)
+def _assert_fused_close(jd, jt, jpl, td, tt, tpl, need_uv):
     assert tpl.shape == (tp.ATTR_CH, H, W) == jpl.shape
     # 5e-5: the TPU kernel's phase 1 packs depth into a 2^16-level key.
     np.testing.assert_allclose(td, jd, atol=5e-5)
@@ -95,8 +96,63 @@ def test_plain_fused_matches_pallas_interpret(state, need_uv, has_combo,
             assert not tpl[c].any()
 
 
+@pytest.mark.parametrize("need_uv,has_combo,tile_h,tile_w", [
+    (True, True, 8, 128),
+    (True, False, 16, 32),
+    (False, False, 8, 128),
+])
+def test_plain_fused_matches_pallas_interpret(state, need_uv, has_combo,
+                                              tile_h, tile_w):
+    _assert_fused_close(*_run(state, need_uv, has_combo, tile_h, tile_w),
+                        need_uv)
+
+
+@pytest.mark.parametrize("tile_h,tile_w", [(8, 128), (16, 32)])
+def test_plain_fused_matches_pallas_strip_skip(state, tile_h, tile_w):
+    """The JAX kernel's own span skip (y_row, sub_rows=8) against the
+    port's plain version, which tests every pair: the skip changes
+    nothing beyond the file's tolerances."""
+    _assert_fused_close(*_run(state, True, True, tile_h, tile_w, span=True),
+                        True)
+
+
+@pytest.mark.parametrize("tile_h,tile_w,height", [
+    (8, 128, 128), (16, 32, 128), (24, 32, 120), (64, 32, 120)])
+def test_covered_pixels_lie_in_their_winners_strip_span(state, tile_h,
+                                                        tile_w, height):
+    """Every pixel the plain version covers lies inside the packed strip
+    span of its winning pair, on the pair stream the frame builds; the
+    frame pads 120 rows to 128 for 64-row tiles, and the span reaches the
+    padded rows too. This is what makes the kernel's skip exact."""
+    cfg, scene, view, world, n_world, _, clip = state
+    jsetup = j_triangle_setup(
+        clip[scene.tri_vtx], W, height, two_sided=scene.tri_two_sided,
+        valid_mask=scene.tri_valid & scene.tri_deferred)
+    extra = jframe._fused_extra(scene, jsetup, world, n_world)
+    setup = setup_from_numpy(to_numpy_leaves(jsetup), "cpu")
+    tcfg = TEST_CONFIG.replace(width=W, height=height, tile_h=tile_h,
+                               tile_w=tile_w)
+    _, _, _, pairs = tframe._raster_vis_fused(
+        setup, torch.from_numpy(np.array(extra)), height, W, tcfg)
+    ph = -(-height // tile_h) * tile_h
+    y_row = 12 + extra.shape[1] + 1
+    _, tid, _ = tp.rasterize_pairs_fused(
+        pairs, ph, W, tile_h=tile_h, tile_w=tile_w, sub_rows=8, y_row=y_row)
+    span = torch.zeros(setup.edge.shape[0] + 1)  # + the dead row
+    span[pairs.pair_tri.long()] = pairs.records[:, y_row]
+    cov = tid >= 0
+    rows = torch.arange(ph)[:, None].expand(ph, W)[cov].float()
+    v = span[tid[cov].long()]
+    ysub1 = torch.floor(v / 4096.0)
+    ysub0 = v - ysub1 * 4096.0
+    assert cov.float().mean() > 0.3
+    if ph > height:
+        assert cov[height:].any()
+    assert bool(((ysub0 * 8 <= rows) & (rows <= (ysub1 + 1) * 8 - 1)).all())
+
+
 def test_port_fused_extra_matches_jax(state):
-    cfg, jscene, jview, jworld, jn_world, jsetup = state
+    cfg, jscene, jview, jworld, jn_world, jsetup, _ = state
     scene = scene_from_numpy(to_numpy_leaves(jscene), "cpu")
     view = view_from_numpy(to_numpy_leaves(jview), "cpu")
     world = t_apply_point(view.model, scene.pair_pos)
@@ -118,7 +174,7 @@ def test_port_fused_extra_matches_jax(state):
 def test_fused_depth_and_ids_equal_the_unfused_plain_pass(state):
     """Phase 1 of the fused path is the visibility pass: equal bit for
     bit."""
-    cfg, scene, view, world, n_world, setup = state
+    cfg, scene, view, world, n_world, setup, _ = state
     extra = jframe._fused_extra(scene, setup, world, n_world)
     ts = setup_from_numpy(to_numpy_leaves(setup), "cpu")
     pairs = tp.build_pairs(ts, W, H, 8, 128,

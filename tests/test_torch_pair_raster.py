@@ -104,3 +104,60 @@ def test_wrappers_refuse_cpu_tensors_for_the_cuda_backend():
     with pytest.raises(RuntimeError, match="card"):
         tp.rasterize_pairs(pairs, H, W, tile_h=8, tile_w=128, backend="cuda")
     assert tp.rasterize_pairs.launches == 0
+
+
+@pytest.mark.parametrize("height,width,tile_h,tile_w", [
+    (72, 96, 24, 32), (64, 128, 64, 32), (64, 128, 8, 128), (72, 96, 24, 24)])
+def test_strip_walk_skips_only_pairs_that_cover_nothing(height, width,
+                                                        tile_h, tile_w):
+    """``strip_walk_hits`` / ``strip_walk_tests`` model what kernel
+    ``pair_raster_fused`` tests: no pair a warp skips covers a pixel of that
+    warp (the skip is exact), and without a span column every warp that
+    owns pixels tests every pair against all of its 32 * NPP slots."""
+    clip = _random_clip(21, n=300)
+    clip[5, 0, 3] = -0.5  # crosses the camera plane: full-screen bbox
+    ts = tr.triangle_setup(torch.from_numpy(clip), width, height,
+                           two_sided=True)
+    n_extra = tp.fused_extra_width(need_uv=False, need_combo=False)
+    extra = torch.from_numpy(
+        np.random.default_rng(4).random((300, n_extra)).astype(np.float32))
+    pairs = tp.build_pairs(ts, width, height, tile_h, tile_w, expand=4,
+                           extra=extra, sort_z=True, ysort_sub_rows=8)
+    y_row = 12 + n_extra + 1  # after the payload and the z column
+    tiles, pids, hit = tp.strip_walk_hits(pairs, height, width, tile_h,
+                                          tile_w, 8, y_row)
+    # Coverage of every (tile, pair) entry at every pixel of the tile, by
+    # the plain version's arithmetic, folded onto the 8 warps.
+    n_tx = width // tile_w
+    run = 32 * tp._pixels_per_thread(tile_h, tile_w)
+    loc = torch.arange(tile_h * tile_w)
+    gx = (tiles % n_tx)[:, None] * tile_w + loc % tile_w
+    gy = (tiles // n_tx)[:, None] * tile_h + loc // tile_w
+    px, py = gx.float() + 0.5, gy.float() + 0.5
+    r = pairs.records[pids]
+    e = [px * r[:, 3 * i : 3 * i + 1] + py * r[:, 3 * i + 1 : 3 * i + 2]
+         + r[:, 3 * i + 2 : 3 * i + 3] for i in range(3)]
+    d = e[0] * r[:, 9:10] + e[1] * r[:, 10:11] + e[2] * r[:, 11:12]
+    inside = ((torch.minimum(torch.minimum(e[0], e[1]), e[2]) >= 0)
+              & (e[0] + e[1] + e[2] > 0) & (d >= 0) & (d <= 1))
+    covers = torch.zeros_like(hit).index_put_(
+        (torch.arange(tiles.shape[0])[:, None].expand_as(inside),
+         (loc // run)[None, :].expand_as(inside)), inside, accumulate=True)
+    assert covers.any(1).float().mean() > 0.3
+    assert not (covers & ~hit).any()
+    skipped = tp.strip_walk_tests(pairs, height, width, tile_h, tile_w, 8,
+                                  y_row)
+    assert int(skipped.sum()) == int(hit.sum()) * run
+    full = tp.strip_walk_tests(pairs, height, width, tile_h, tile_w)
+    owning = -(-(tile_h * tile_w) // run)
+    assert int(full.sum()) == tiles.shape[0] * owning * run
+    assert int(skipped.sum()) < int(full.sum())
+    # The wrapper names the span column and the strip height it is given.
+    with pytest.raises(ValueError, match="not a column"):
+        tp.rasterize_pairs_fused(pairs, height, width, tile_h=tile_h,
+                                 tile_w=tile_w, y_row=pairs.records.shape[1],
+                                 need_uv=False, has_combo=False)
+    with pytest.raises(ValueError, match="sub_rows"):
+        tp.rasterize_pairs_fused(pairs, height, width, tile_h=tile_h,
+                                 tile_w=tile_w, sub_rows=0, y_row=y_row,
+                                 need_uv=False, has_combo=False)

@@ -1,32 +1,48 @@
 // K2 pair_raster_fused: visibility raster + attribute interpolation.
 //
 // Replaces: zeldaengine_tpu/ops/rasterize_pallas.py::_pair_fused_kernel
-// (entry rasterize_pairs_fused). Phase 1 is K1's walk (pair_walk.cuh).
-// Phase 2 there re-walks the record slices that hold winners, because
-// that machine has no per-element indexed load; here it is one indexed
-// load of the winner's record row per pixel. The epilogue is the same
-// arithmetic in the same order: edge functions of the winner, the
+// (entry rasterize_pairs_fused). Phase 1 is the strip walk
+// (strip_walk.cuh): warps own contiguous row runs of the tile, skip every
+// staged pair whose packed strip span (record column y_row, strips of
+// sub_rows rows) misses their rows, as the TPU kernel skips sub-blocks
+// outside a slice's span, or one of whose edges excludes all their pixels,
+// and stage records through a three-stage cp.async ring. Phase 2 there
+// re-walks the record slices that hold winners, because that machine has
+// no per-element indexed load; here it is one indexed load of the winner's
+// record row per pixel. The epilogue is the same arithmetic in the same
+// order: edge functions of the winner, the
 // barycentrics and their analytic d/dx, d/dy, and the 24 channel-major
 // output planes (0 covered*(1+min barycentric), 1 combo, 2-3 uv, 4 lod,
 // 5-7 colour, 8-10 world pos, 11-13 world normal, 14-15 duv/dx,
 // 16-17 duv/dy, 18-20 dpos/dx, 21-23 dpos/dy).
 //
 // Record row: 0-8 edge, 9-11 zc, [12 combo if has_combo], then three
-// corners of corner_w floats (uv2 [if need_uv], colour3, pos3, normal3).
+// corners of corner_w floats (uv2 [if need_uv], colour3, pos3, normal3),
+// and the packed strip span at column y_row (ysort binning; y_row < 0:
+// none, every staged pair is tested).
 //
-// Bound on this card: phase 1 by operations (see pair_raster.cu); phase 2
-// by bytes - 26 output words per pixel written once, plus one ~45-word
-// record row per pixel that neighbouring pixels share through L2. Output
-// planes are written channel-major so that a warp's stores to one plane
-// are contiguous.
-#include "pair_walk.cuh"
+// Bound on this card: phase 1 by operations (26 per pixel-pair test; the
+// skips bring the tests made close to the tests inside the pairs' bboxes);
+// phase 2 by bytes - 26 output words per pixel written once, plus one
+// ~45-word record row per pixel that neighbouring pixels share through L2.
+// A warp's pixels of one k are 32 consecutive pixels of a row, so its
+// stores to each output plane are coalesced.
+#include "strip_walk.cuh"
 
 namespace {
 
 constexpr int kAttrCh = 24;
 
+// Three blocks of 256 threads a multiprocessor up to 8 pixels a thread
+// (sm_90a: 80 registers at NPP 8 without spills, against 126 unbounded; the
+// third resident block hides the walk's shared-memory and record-load
+// latency).
 template <int NPP>
-__global__ void __launch_bounds__(zk::kThreads) pair_raster_fused_kernel(
+constexpr int kMinBlocks = NPP <= 8 ? 3 : 1;
+
+template <int NPP, bool X1>
+__global__ void __launch_bounds__(zk::kThreads, kMinBlocks<NPP>)
+    pair_raster_fused_kernel(
     const float* __restrict__ records, int rec_w,
     const int* __restrict__ starts, const int* __restrict__ ends,
     const int* __restrict__ sstarts, const int* __restrict__ sends,
@@ -34,15 +50,17 @@ __global__ void __launch_bounds__(zk::kThreads) pair_raster_fused_kernel(
     const float* __restrict__ init_depth, float* __restrict__ depth,
     int* __restrict__ tid, float* __restrict__ attrs, int height, int width,
     int tile_h, int tile_w, int n_tx, int n_sx, int super_h, int super_w,
-    float tex_size, int need_uv, int has_combo, float combo_const) {
+    int sub_rows, int y_row, float tex_size, int need_uv, int has_combo,
+    float combo_const) {
   const zk::TileCtx c = zk::tile_context(starts, ends, sstarts, sends,
                                          gbounds, n_tx, n_sx, super_h,
                                          super_w);
   float px[NPP], py[NPP], best[NPP];
-  int gidx[NPP], bid[NPP];
-  zk::pixel_setup<NPP>(c, tile_h, tile_w, width, init_depth, px, py, best,
-                       gidx);
-  zk::walk_ranges<NPP, true>(c, records, rec_w, px, py, best, bid);
+  int bid[NPP];
+  zk::strip::pixel_setup<NPP>(c, tile_h, tile_w, width, init_depth, px, py,
+                              best);
+  zk::strip::walk<NPP, X1>(c, records, rec_w, y_row, sub_rows, tile_h,
+                           tile_w, px, py, best, bid);
 
   const size_t plane = (size_t)height * width;
   const int corner_w = need_uv ? 11 : 9;
@@ -53,8 +71,9 @@ __global__ void __launch_bounds__(zk::kThreads) pair_raster_fused_kernel(
 
 #pragma unroll
   for (int k = 0; k < NPP; ++k) {
-    const int g = gidx[k];
+    const int g = zk::strip::pixel_index<NPP>(c, tile_h, tile_w, width, k);
     if (g < 0) continue;
+    const float pxk = X1 ? px[0] : px[k];
     const bool covered = bid[k] >= 0;
     depth[g] = best[k];
     tid[g] = covered ? pair_tri[bid[k]] : -1;
@@ -70,9 +89,9 @@ __global__ void __launch_bounds__(zk::kThreads) pair_raster_fused_kernel(
     const float a0 = rec[0], a1 = rec[1], a2 = rec[2];
     const float a3 = rec[3], a4 = rec[4], a5 = rec[5];
     const float a6 = rec[6], a7 = rec[7], a8 = rec[8];
-    const float e0 = a0 * px[k] + a1 * py[k] + a2;
-    const float e1 = a3 * px[k] + a4 * py[k] + a5;
-    const float e2 = a6 * px[k] + a7 * py[k] + a8;
+    const float e0 = a0 * pxk + a1 * py[k] + a2;
+    const float e1 = a3 * pxk + a4 * py[k] + a5;
+    const float e2 = a6 * pxk + a7 * py[k] + a8;
     const float esum = e0 + e1 + e2;
     const float inv = 1.0f / (fabsf(esum) > 1e-20f ? esum : 1.0f);
     const float b0 = e0 * inv, b1 = e1 * inv, b2 = e2 * inv;
@@ -129,27 +148,36 @@ __global__ void __launch_bounds__(zk::kThreads) pair_raster_fused_kernel(
 
 }  // namespace
 
-// As zk_pair_raster, plus attrs (24, height, width) and the static
-// elision flags of the record layout.
+// As zk_pair_raster, plus attrs (24, height, width), the strip span
+// (sub_rows, y_row; y_row < 0: no span column) and the static elision flags
+// of the record layout. records must be 16-byte aligned with rec_w a
+// multiple of 4 (cp.async stages 16-byte pieces of each row).
 extern "C" int zk_pair_raster_fused(
     const void* records, int rec_w, const void* starts, const void* ends,
     const void* sstarts, const void* sends, const void* gbounds,
     const void* pair_tri, const void* init_depth, void* depth, void* tid,
     void* attrs, int height, int width, int tile_h, int tile_w, int n_sx,
-    int super_h, int super_w, int texture_size, int need_uv, int has_combo,
-    float combo_const, void* stream) {
+    int super_h, int super_w, int sub_rows, int y_row, int texture_size,
+    int need_uv, int has_combo, float combo_const, void* stream) {
+  if (rec_w % 4 != 0 || ((size_t)records & 15) != 0 || y_row >= rec_w ||
+      (y_row >= 0 && sub_rows <= 0))
+    return (int)cudaErrorInvalidValue;
   const int n_tx = width / tile_w;
   const int n_ty = height / tile_h;
   const dim3 grid(n_tx * n_ty);
   cudaStream_t s = (cudaStream_t)stream;
-#define ZK_LAUNCH(NPP)                                                      \
-  pair_raster_fused_kernel<NPP><<<grid, zk::kThreads, 0, s>>>(              \
+  const bool x1 = tile_w == 32;  // a lane's pixels share one column
+#define ZK_LAUNCH_V(NPP, X1)                                                \
+  pair_raster_fused_kernel<NPP, X1><<<grid, zk::kThreads, 0, s>>>(          \
       (const float*)records, rec_w, (const int*)starts, (const int*)ends,   \
       (const int*)sstarts, (const int*)sends, (const int*)gbounds,          \
       (const int*)pair_tri, (const float*)init_depth, (float*)depth,        \
       (int*)tid, (float*)attrs, height, width, tile_h, tile_w, n_tx, n_sx,  \
-      super_h, super_w, (float)texture_size, need_uv, has_combo,            \
-      combo_const)
+      super_h, super_w, sub_rows, y_row, (float)texture_size, need_uv,      \
+      has_combo, combo_const)
+#define ZK_LAUNCH(NPP)                                                      \
+  if (x1) ZK_LAUNCH_V(NPP, true);                                            \
+  else ZK_LAUNCH_V(NPP, false)
   switch (zk::pixels_per_thread(tile_h, tile_w)) {
     case 1: ZK_LAUNCH(1); break;
     case 2: ZK_LAUNCH(2); break;
@@ -159,5 +187,6 @@ extern "C" int zk_pair_raster_fused(
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ZK_LAUNCH
+#undef ZK_LAUNCH_V
   return (int)cudaGetLastError();
 }

@@ -117,10 +117,11 @@ _SIGNATURES = {
     # super_w, depth_only, stream
     "zk_pair_raster": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                        _I, _I, _I, _I, _I, _I, _I, _I, _VP],
-    # ... + attrs, texture_size, need_uv, has_combo, combo_const
+    # ... + attrs, sub_rows, y_row, texture_size, need_uv, has_combo,
+    # combo_const
     "zk_pair_raster_fused": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                              _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _F, _VP],
+                             _I, _I, _I, _F, _VP],
     # shadowmap, dim_y, dim_x, shadow_coord, out, n_pixels, radius, scale,
     # bias, stream
     "zk_pcf_taps": [_VP, _I, _I, _VP, _VP, _I, _I, _F, _F, _VP],

@@ -10,8 +10,10 @@ Kernel ``pcf_window_table`` replaces the JAX package's
 ``out[y * D + x, dy * 8 + dx] = sm[(y + lo_y + dy) mod D, (x + lo_x + dx)
 mod D]``, that ``compute_pcf_window_roll`` gathers all taps from at once.
 Both are pure data movement, one CUDA source (``csrc/pcf_window_table.cu``):
-the TPU builds them with lane rolls and an in-kernel transpose; here every
-thread writes one 16-byte group of a table row straight from the map.
+the TPU builds them with lane rolls and an in-kernel transpose. Here K7
+stages each map row's wrapped texels in shared memory once and writes the
+row's table as consecutive 16-byte groups; K8 has every thread write one
+16-byte group of a table row straight from the map.
 """
 
 from __future__ import annotations

@@ -13,7 +13,10 @@ Same math as ``ops/rasterize.py`` (homogeneous edge functions from
 - **Kernels** (``csrc/pair_raster.cu``, ``csrc/pair_raster_fused.cu``): one
   thread block per tile walks its dense, supertile and global ranges and
   keeps per pixel the minimum depth and the lowest pair id at that depth;
-  the fused kernel then interpolates the winner's attributes.
+  the fused kernel skips, per warp, the pairs whose packed strip span
+  misses the warp's rows or whose edges exclude the warp's pixels
+  (``strip_walk_tests`` counts what it tests) and then interpolates the
+  winner's attributes.
 
 Depth is evaluated in barycentric form, ``d = sum_i e_i * zc_i``: the
 algebraically-equivalent folded screen-linear form cancels
@@ -550,6 +553,75 @@ def rasterize_pairs_fused_plain(pairs: PairedTriangles, height: int,
     return depth, _map_tid(pairs, pid), torch.stack(planes, dim=0)
 
 
+def _pixels_per_thread(tile_h: int, tile_w: int) -> int:
+    """Pixels per thread of the raster kernels (256 threads a tile),
+    rounded up to a power of two, as ``zk::pixels_per_thread``."""
+    need = -(-(tile_h * tile_w) // 256)
+    return 1 << max(0, (need - 1).bit_length())
+
+
+def strip_walk_hits(pairs: PairedTriangles, height: int, width: int,
+                    tile_h: int, tile_w: int, sub_rows: int = 8,
+                    y_row: int = -1):
+    """Which pairs kernel ``pair_raster_fused`` tests, per warp: (tiles,
+    pair ids, hits) with one row per (tile, pair) of the tile's dense,
+    supertile and global ranges and hits an (N, 8) bool of the 8 warps.
+
+    Warp w of a tile owns the linear tile pixels [w*32*NPP, (w+1)*32*NPP);
+    a warp that owns no pixel tests nothing. With ``y_row`` < 0 the others
+    test every pair. Otherwise a warp skips a pair whose packed strip span
+    misses the warp's rows, or one of whose edge functions is below
+    -1e-5 * (|a| x1 + |b| y1 + |c|) at the corner of the warp's pixel-centre
+    rectangle (all tile columns x the warp's rows) that its signs pick: the
+    kernel's test in the kernel's fp32 operation order."""
+    n_ty, n_tx = height // tile_h, width // tile_w
+    dev = pairs.records.device
+    f32 = torch.float32
+    tiles, pids = _tile_pair_list(pairs, n_ty, n_tx, tile_h, tile_w)
+    run = 32 * _pixels_per_thread(tile_h, tile_w)
+    tile_px = tile_h * tile_w
+    first = torch.arange(8, device=dev) * run
+    owns = first < tile_px
+    last = torch.clamp(first + run, max=tile_px) - 1
+    if y_row < 0:
+        return tiles, pids, owns[None, :].expand(tiles.shape[0], -1)
+    ty = (tiles // n_tx)[:, None] * tile_h
+    r0 = (ty + (first // tile_w)[None, :]).to(f32)
+    r1 = (ty + (torch.maximum(last, first) // tile_w)[None, :]).to(f32)
+    rec = pairs.records[pids]
+    v = rec[:, y_row : y_row + 1]
+    y1 = torch.floor(v * (1.0 / 4096.0))
+    y0 = v - y1 * 4096.0
+    hit = ((y0 * sub_rows <= r1) & ((y1 + 1.0) * sub_rows - 1.0 >= r0)
+           & owns[None, :])
+    rx0 = ((tiles % n_tx) * tile_w).to(f32)[:, None] + 0.5
+    rx1 = ((tiles % n_tx) * tile_w + tile_w - 1).to(f32)[:, None] + 0.5
+    ry0, ry1 = r0 + 0.5, r1 + 0.5
+    for i in range(3):
+        a, b, c = (rec[:, 3 * i + j : 3 * i + j + 1] for j in range(3))
+        x = torch.where(a >= 0.0, rx1, rx0)
+        y = torch.where(b >= 0.0, ry1, ry0)
+        e = x * a + y * b + c
+        s = torch.abs(a) * rx1 + torch.abs(b) * ry1 + torch.abs(c)
+        hit = hit & ~(e < -1e-5 * s)
+    return tiles, pids, hit
+
+
+def strip_walk_tests(pairs: PairedTriangles, height: int, width: int,
+                     tile_h: int, tile_w: int, sub_rows: int = 8,
+                     y_row: int = -1) -> torch.Tensor:
+    """(pixel, pair) tests kernel ``pair_raster_fused`` makes on this pair
+    stream, per tile and warp: an (n_tiles, 8) int64 tensor. A warp tests
+    all 32*NPP of its pixel slots against each pair it does not skip
+    (``strip_walk_hits``)."""
+    tiles, _, hit = strip_walk_hits(pairs, height, width, tile_h, tile_w,
+                                    sub_rows, y_row)
+    per = torch.zeros(((height // tile_h) * (width // tile_w), 8),
+                      dtype=torch.int64, device=pairs.records.device)
+    per.index_add_(0, tiles, hit.to(torch.int64))
+    return per * (32 * _pixels_per_thread(tile_h, tile_w))
+
+
 # ------------------------------------------------------------------ kernels
 
 
@@ -682,19 +754,34 @@ def rasterize_pairs_fused(
     need_uv, has_combo)) fused payload. Returns (depth, tid, attrs) with
     tid = ORIGINAL triangle ids and attrs = (ATTR_CH, height, width)
     float32 planes (uv/lod/duv/dpos planes are zeros when ``need_uv`` is
-    off). Tensors on the card go to kernel ``pair_raster_fused``; CPU
-    tensors (or ``backend="torch"``) to ``rasterize_pairs_fused_plain``.
+    off). ``y_row`` >= 0 names the record column holding the packed strip
+    span that ``build_pairs(ysort_sub_rows=sub_rows)`` appends; the kernel
+    then skips, per warp, the pairs whose span misses the warp's rows
+    (exact: coverage lies inside the binning bbox) or one of whose edges
+    excludes the warp's pixels (exact in fp32, see ``strip_walk_hits``).
+    Tensors on the card go to kernel ``pair_raster_fused``; CPU tensors (or
+    ``backend="torch"``) to ``rasterize_pairs_fused_plain``, which tests
+    every pair.
     """
-    del sub_rows, y_row
     min_w = 12 + fused_extra_width(need_uv, has_combo)
     assert pairs.records.shape[1] >= min_w, (
         pairs.records.shape, need_uv, has_combo)
+    if y_row >= pairs.records.shape[1]:
+        raise ValueError(f"y_row {y_row} is not a column of records "
+                         f"{tuple(pairs.records.shape)}")
+    if sub_rows <= 0:
+        raise ValueError(f"sub_rows must be positive, got {sub_rows}")
     if not _use_kernel(pairs.records, backend):
         return rasterize_pairs_fused_plain(
             pairs, height, width, init_depth, tile_h, tile_w, texture_size,
             need_uv, has_combo, combo_const)
     ptrs, geom = _check_pairs(pairs, height, width, tile_h, tile_w, min_w,
                               init_depth)
+    if pairs.records.shape[1] % 4 or pairs.records.data_ptr() % 16:
+        raise ValueError("records: the kernel stages 16-byte pieces of each "
+                         "row; needs a 16-byte aligned base and a row width "
+                         f"that is a multiple of 4, got "
+                         f"{tuple(pairs.records.shape)}")
     dev = pairs.records.device
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tid = torch.empty((height, width), dtype=torch.int32, device=dev)
@@ -703,9 +790,9 @@ def rasterize_pairs_fused(
     with torch.cuda.device(dev):
         code = _build.load().zk_pair_raster_fused(
             *ptrs, depth.data_ptr(), tid.data_ptr(), attrs.data_ptr(),
-            height, width, tile_h, tile_w, *geom, int(texture_size),
-            int(need_uv), int(has_combo), float(combo_const),
-            torch.cuda.current_stream().cuda_stream)
+            height, width, tile_h, tile_w, *geom, int(sub_rows), int(y_row),
+            int(texture_size), int(need_uv), int(has_combo),
+            float(combo_const), torch.cuda.current_stream().cuda_stream)
     _build.check(code, "pair_raster_fused")
     rasterize_pairs_fused.launches += 1
     return depth, tid, attrs

@@ -158,6 +158,21 @@ def _fused_flags(meta):
     return need_uv, need_combo, combo_const
 
 
+def _span_padded_rows(setup, height: int, padded: int):
+    """The setup clamps each bbox to the viewport's ``height`` rows, but
+    the tile grid pads rows below them, which the raster still covers.
+    A bbox that reaches the bottom edge from inside the viewport is
+    extended to the padded bottom, so that the packed strip span built
+    from it holds every row its triangle covers and the kernel's span
+    skip stays exact on the padded rows too. Binning is unchanged: such a
+    bbox already ends in the last tile row."""
+    b = setup.bbox
+    reach = (b[:, 3] >= height) & (b[:, 1] < height)
+    y1 = torch.where(reach, torch.full_like(b[:, 3], float(padded)), b[:, 3])
+    return setup._replace(bbox=torch.stack([b[:, 0], b[:, 1], b[:, 2], y1],
+                                           -1))
+
+
 def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
                       meta=None):
     """Fused visibility raster + attribute interpolation: returns
@@ -172,6 +187,8 @@ def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
     assert extra.shape[1] == n_extra, (extra.shape, n_extra)
     has_z = 1 if config.raster_zsort else 0
     ysr = config.sub_rows if config.raster_ysort else None
+    if ysr and ph > height:
+        setup = _span_padded_rows(setup, height, ph)
     pairs = build_pairs(setup, pw, ph, config.tile_h, config.tile_w,
                         expand=config.pair_expand,
                         extra=extra, max_pairs=config.max_pairs,
