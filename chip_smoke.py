@@ -257,10 +257,10 @@ def recorded_calls(calls: dict):
 def needed_tests(pairs: rc.PairedTriangles, setup, height, width, tile_h,
                  tile_w):
     """(pixel, pair) tests the function needs on this pair stream, and the
-    tests the kernel makes. A pair can only cover pixels whose centre lies
-    inside its triangle's bbox, so for every (tile, pair) of the dense,
+    tests of a walk without skips. A pair can only cover pixels whose centre
+    lies inside its triangle's bbox, so for every (tile, pair) of the dense,
     supertile and global ranges only the pixel centres of bbox & tile are
-    counted; the kernel tests all tile_h * tile_w pixels of the tile."""
+    counted; a walk without skips tests all tile_h * tile_w pixels."""
     n_ty, n_tx = height // tile_h, width // tile_w
     tile, pair = rc._tile_pair_list(pairs, n_ty, n_tx, tile_h, tile_w)
     bbox = setup.bbox[pairs.pair_tri.long()[pair]]
@@ -278,18 +278,21 @@ def needed_tests(pairs: rc.PairedTriangles, setup, height, width, tile_h,
     return int((nx * ny).double().sum()), int(tile.numel()) * tile_h * tile_w
 
 
-def strip_walk_load(pairs, height, width, kw) -> dict:
-    """The tests kernel pair_raster_fused makes (rc.strip_walk_tests), and
-    how evenly they fall on the warps of a block: the block walks its
-    chunks in step, so a crowded strip holds the other warps."""
-    per = rc.strip_walk_tests(pairs, height, width, kw["tile_h"],
-                              kw["tile_w"], kw.get("sub_rows", 8),
-                              kw.get("y_row", -1))
+def strip_walk_load(pairs, height, width, kw, split: bool = False) -> dict:
+    """The tests the strip walk makes (rc.strip_walk_tests: kernels
+    pair_raster and pair_raster_fused), and how evenly they fall on the
+    warps of a block (the block walks its chunks in step, so a crowded
+    strip holds the other warps) and on the tiles. ``split``: also on the
+    blocks of kernel pair_raster, which splits a crowded tile's sequence
+    (rc.split_parts_of at its default part sizes)."""
+    th, tw = kw["tile_h"], kw["tile_w"]
+    per = rc.strip_walk_tests(pairs, height, width, th, tw,
+                              kw.get("sub_rows", 8), kw.get("y_row", -1))
     per_tile = per.sum(1)
     busy = per[per > 0].double()
     hist = torch.bincount(torch.floor(torch.log2(busy)).long()) \
         if busy.numel() else torch.zeros(0)
-    return dict(
+    out = dict(
         tests=int(per.sum()),
         # share of warp slots doing tests if each block ran at the pace of
         # its busiest warp (1.0: perfectly even)
@@ -297,26 +300,42 @@ def strip_walk_load(pairs, height, width, kw) -> dict:
             per.sum().double() / (per.amax(1).double().sum() * per.shape[1])),
         tile_tests_max_over_mean=float(
             per_tile.max().double() / per_tile.double().mean()),
+        busiest_tile_share=float(per_tile.max().double() / per.sum()),
         warp_tests_log2_histogram=hist.tolist())
+    if split:
+        tiles, _, hit = rc.strip_walk_hits(pairs, height, width, th, tw,
+                                           kw.get("sub_rows", 8),
+                                           kw.get("y_row", -1))
+        _, _, part, split_tiles = rc.split_parts_of(pairs, height, width,
+                                                    th, tw)
+        n_parts = rc.SPLIT_PARTS
+        tests = hit.sum(1) * (32 * rc._pixels_per_thread(th, tw))
+        blocks = torch.zeros(per_tile.numel() * n_parts, dtype=torch.int64,
+                             device=tests.device)
+        blocks.index_add_(0, tiles * n_parts + part, tests)
+        walking = blocks[blocks > 0].double()
+        out.update(
+            split_tiles=int(split_tiles.sum()), tiles=int(per_tile.numel()),
+            blocks_walking=int(walking.numel()),
+            block_tests_max_over_mean=float(walking.max() / walking.mean()),
+            busiest_block_share=float(walking.max() / walking.sum()))
+    return out
 
 
 def raster_bound(pairs, setup, height, width, kw, out_words: int,
-                 walk: dict = None) -> dict:
-    """``walk``: the strip walk's load (kernel pair_raster_fused); without
-    it the kernel tests every pixel of the tile against every pair
-    (kernel pair_raster)."""
+                 walk: dict) -> dict:
+    """``walk``: the strip walk's load (``strip_walk_load``)."""
     tests, all_tests = needed_tests(pairs, setup, height, width,
                                     kw["tile_h"], kw["tile_w"])
-    kernel_tests = walk["tests"] if walk else all_tests
+    kernel_tests = walk["tests"]
     live = int(pairs.gbounds[1])
     n_bytes = (live * pairs.records.shape[1] * 4 + live * 4
                + (pairs.starts.numel() * 2 + pairs.sstarts.numel() * 2 + 2) * 4
                + height * width * 4 * out_words)
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = tests * OPS_PER_TEST / PEAK_FP32_PER_S * 1e3
-    extra = {} if not walk else dict(
-        pixel_pair_tests_without_skip=all_tests,
-        **{k: v for k, v in walk.items() if k != "tests"})
+    extra = dict(pixel_pair_tests_without_skip=all_tests,
+                 **{k: v for k, v in walk.items() if k != "tests"})
     emit("bound", pixel_pair_tests_in_bbox=tests,
          pixel_pair_tests_of_the_kernel=kernel_tests,
          kernel_over_bbox=kernel_tests / max(tests, 1), live_pairs=live,
@@ -325,20 +344,40 @@ def raster_bound(pairs, setup, height, width, kw, out_words: int,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+@contextlib.contextmanager
+def one_block_a_tile():
+    """Kernel pair_raster without its split of crowded tiles: every tile's
+    sequence walked by one block."""
+    saved = rc.SPLIT_PARTS
+    rc.SPLIT_PARTS = 1
+    try:
+        yield
+    finally:
+        rc.SPLIT_PARTS = saved
+
+
 def bytes_bound(n_bytes: int) -> dict:
     return dict(bound_ms=n_bytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
 
 
 def compare_raster(kernel_out, plain_out, fused: bool) -> dict:
-    """Depth max-abs <= 1e-6; triangle ids equal wherever the plain depth
-    has a unique minimum - both walk pairs in the same order with the same
-    arithmetic (-fmad=false), so the mismatch count must be 0; fused
-    planes atol/rtol 1e-5 on covered pixels."""
+    """Depth max-abs <= 1e-6 and the same bits, but for the sign of a
+    zero (kernel pair_raster returns a winning -0.0 on a split tile as
+    +0.0, and the plain version's scatter minimum leaves the sign of equal
+    zeros open); triangle ids equal - both walk pairs in the same order
+    with the same arithmetic (-fmad=false), so the mismatch count must be
+    0; fused planes atol/rtol 1e-5 on covered pixels."""
     if not isinstance(kernel_out, tuple):
         kernel_out, plain_out = (kernel_out,), (plain_out,)
-    err = float((kernel_out[0] - plain_out[0]).abs().max())
+    kd, pd = kernel_out[0], plain_out[0]
+    err = float((kd - pd).abs().max())
     check(err <= 1e-6, f"depth max-abs {err} > 1e-6")
-    out = {"max_abs_err": err}
+    differ = kd.view(torch.int32) != pd.view(torch.int32)
+    zeros = differ & (kd == 0) & (pd == 0)
+    bits = int((differ & ~zeros).sum())
+    check(bits == 0, f"{bits} depths differ in their bits")
+    out = {"max_abs_err": err, "depth_bit_mismatches": bits,
+           "signed_zero_differences": int(zeros.sum())}
     if len(kernel_out) > 1:
         mism = int((kernel_out[1] != plain_out[1]).sum())
         check(mism == 0, f"{mism} triangle ids differ")
@@ -381,6 +420,71 @@ def random_pairs(seed, n, height, width, tile_h, tile_w, extra_w=0,
                           **pair_kw)
 
 
+def crowded_pairs(seed=11, n=3000, dim=256, tile=(64, 32)):
+    """A pair stream whose tiles are crowded: ``n`` small triangles (a few
+    texels wide, depths in (0.1, 0.9), some coincident) over one 64x32
+    tile of a ``dim``^2 map, plus a sparse background, binned as the
+    shadow map bins (z sort, 8-row strips)."""
+    rng = np.random.default_rng(seed)
+    th, tw = tile
+    x0, y0 = 96.0, 64.0  # the crowded tile's corner, in texels
+    cx = rng.uniform(x0, x0 + tw, (n, 1))
+    cy = rng.uniform(y0, y0 + th, (n, 1))
+    bg = rng.uniform(0.0, dim, (n // 4, 2))
+    cx = np.concatenate([cx, bg[:, :1]])
+    cy = np.concatenate([cy, bg[:, 1:]])
+    m = cx.shape[0]
+    px = cx + rng.uniform(-4.0, 4.0, (m, 3))
+    py = cy + rng.uniform(-4.0, 4.0, (m, 3))
+    z = np.repeat(rng.uniform(0.1, 0.9, (m, 1)), 3, 1)
+    z[1::7] = z[0:-1:7]  # exact depth ties between neighbours
+    px[1::7], py[1::7] = px[0:-1:7], py[0:-1:7]
+    clip = np.stack([px / dim * 2.0 - 1.0, py / dim * 2.0 - 1.0, z,
+                     np.ones_like(z)], -1).astype(np.float32)
+    setup = rast.triangle_setup(torch.from_numpy(clip).cuda(), dim, dim,
+                                two_sided=True)
+    return rc.build_pairs(setup, dim, dim, th, tw, sort_z=True,
+                          ysort_sub_rows=8, expand=8)
+
+
+# Kernel pcf_taps's blocks of pixels (kBlockX x kBlockY) and the texels of
+# their shared-memory windows (kWin), csrc/pcf_taps.cu.
+PCF_BLOCK = (16, 32)
+PCF_WINDOW = 4096
+
+
+def pcf_window_blocks(sc, dims, radius, scale) -> dict:
+    """How kernel pcf_taps serves the blocks of this coordinate field: the
+    texel box each 32x16 block's in-range taps reach (the kernel's
+    arithmetic), and the share of blocks whose box fits its 4,096-texel
+    shared-memory window (the others tap the map directly)."""
+    h, w = sc.shape[:2]
+    wq = sc[..., 3:4]
+    s = sc / torch.where(wq.abs() > 1e-20, wq, torch.ones_like(wq))
+    live = (s[..., 2] > -1.0) & (s[..., 2] < 1.0) & (s[..., 3] > 0.0)
+    ends = torch.tensor([-radius, radius], dtype=torch.float32,
+                        device=sc.device)
+    bh, bw = PCF_BLOCK
+    ph, pw = -(-h // bh) * bh, -(-w // bw) * bw
+    big = 2 ** 40
+    area = None
+    for axis, dim in ((0, dims[1]), (1, dims[0])):
+        i = torch.floor(s[..., axis, None] * float(dim) + scale * ends).to(
+            torch.int32).to(torch.int64)
+        lo = torch.where(live, i.amin(-1), torch.full_like(i[..., 0], big))
+        hi = torch.where(live, i.amax(-1), torch.full_like(i[..., 0], -big))
+        lo = torch.nn.functional.pad(lo, (0, pw - w, 0, ph - h), value=big)
+        hi = torch.nn.functional.pad(hi, (0, pw - w, 0, ph - h), value=-big)
+        lo = lo.reshape(ph // bh, bh, pw // bw, bw).amin((1, 3))
+        hi = hi.reshape(ph // bh, bh, pw // bw, bw).amax((1, 3))
+        ext = (hi - lo + 1).clamp(0, 1 << 20)
+        area = ext if area is None else area * ext
+    tapping = area > 0
+    return dict(window_blocks_share=float(
+        ((area <= PCF_WINDOW) & tapping).sum() / tapping.sum().clamp_min(1)),
+        window_texels_median=float(area[tapping].double().median()))
+
+
 def phase_kernels(captured: dict, frame_launches: dict) -> list:
     """Replay every kernel on the inputs a 1080p frame of its path gave it
     (plus option variants and one small ragged shape), hold it against its
@@ -401,26 +505,52 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     (pairs, ph, pw), kw = captured["pair_raster"]
     (setup_sh, pairs_sh), (setup_gb, pairs_gb) = captured["build_pairs"]
     check(pairs_sh is pairs, "shadow pairs are not the first build_pairs call")
-    main = run("pair_raster", "frame: shadow map, depth_only", rc.rasterize_pairs,
-               (pairs, ph, pw), kw, lambda k, p: compare_raster(k, p, False))
+    check(kw["y_row"] >= 0, "the frame's shadow pairs carry no strip span")
+    cmp_k1 = lambda k, p: compare_raster(k, p, False)  # noqa: E731
+    main = run("pair_raster", "frame: shadow map, strip span, depth_only",
+               rc.rasterize_pairs, (pairs, ph, pw), kw, cmp_k1)
     kw_ids = dict(kw, depth_only=False)
-    run("pair_raster", "shadow pairs, with ids", rc.rasterize_pairs,
-        (pairs, ph, pw), kw_ids, lambda k, p: compare_raster(k, p, False))
+    run("pair_raster", "shadow pairs, strip span, with ids",
+        rc.rasterize_pairs, (pairs, ph, pw), kw_ids, cmp_k1)
     init = torch.from_numpy(np.random.default_rng(1).uniform(
         0.9, 1.0, (ph, pw)).astype(np.float32)).cuda()
     for depth_only in (True, False):
         run("pair_raster", f"shadow pairs, init_depth, depth_only={depth_only}",
             rc.rasterize_pairs, (pairs, ph, pw, init),
-            dict(kw, depth_only=depth_only),
-            lambda k, p: compare_raster(k, p, False))
+            dict(kw, depth_only=depth_only), cmp_k1)
+    with one_block_a_tile():
+        run("pair_raster", "shadow pairs, strip span, one block a tile",
+            rc.rasterize_pairs, (pairs, ph, pw), kw, cmp_k1)
     small = random_pairs(3, 400, 72, 96, 24, 32, sort_z=True,
                          ysort_sub_rows=8, expand=2)
-    run("pair_raster", "ragged 72x96, tiles 24x32", rc.rasterize_pairs,
-        (small, 72, 96), dict(tile_h=24, tile_w=32),
-        lambda k, p: compare_raster(k, p, False))
+    for y_row in (13, -1):
+        run("pair_raster", f"ragged 72x96, tiles 24x32, y_row={y_row}",
+            rc.rasterize_pairs, (small, 72, 96),
+            dict(tile_h=24, tile_w=32, sub_rows=8, y_row=y_row), cmp_k1)
+    # A crowded tile split over several blocks, merged by atomicMin.
+    crowd = crowded_pairs()
+    crowd_kw = dict(tile_h=64, tile_w=32, sub_rows=8, y_row=13)
+    split_tiles = rc.split_parts_of(crowd, 256, 256, 64, 32)[3]
+    check(bool(split_tiles.any()), "the crowded stream splits no tile")
+    crowd_init = torch.from_numpy(np.random.default_rng(4).uniform(
+        0.5, 1.0, (256, 256)).astype(np.float32)).cuda()
+    for depth_only in (True, False):
+        for cinit in (None, crowd_init):
+            run("pair_raster",
+                f"crowded 256x256 ({int(split_tiles.sum())} tiles split), "
+                f"depth_only={depth_only}, init_depth={cinit is not None}",
+                rc.rasterize_pairs, (crowd, 256, 256, cinit),
+                dict(crowd_kw, depth_only=depth_only), cmp_k1)
     call = lambda: rc.rasterize_pairs(  # noqa: E731
         pairs, ph, pw, backend="cuda", **kw)
     times = kernel_times(call, 10)
+    crowd_call = lambda: rc.rasterize_pairs(  # noqa: E731
+        crowd, 256, 256, backend="cuda", depth_only=True, **crowd_kw)
+    crowd_ms = graph_ms(crowd_call, 10)
+    # The strip walk alone, timed in this call.
+    with one_block_a_tile():
+        one_ms = graph_ms(call, 10)
+        crowd_one_ms = graph_ms(crowd_call, 10)
     plain_ms = cuda_ms(lambda: rc.rasterize_pairs(
         pairs, ph, pw, backend="torch", **kw), 1)
     rows.append(dict(name="pair_raster", route="cuda",
@@ -428,7 +558,11 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
                      launches=frame_launches["pair_raster"],
                      max_abs_err=main["max_abs_err"], **times,
                      plain_ms=plain_ms,
-                     **raster_bound(pairs, setup_sh, ph, pw, kw, out_words=1),
+                     ms_one_block_a_tile=one_ms, crowded_ms=crowd_ms,
+                     crowded_ms_one_block_a_tile=crowd_one_ms,
+                     **raster_bound(pairs, setup_sh, ph, pw, kw, out_words=1,
+                                    walk=strip_walk_load(pairs, ph, pw, kw,
+                                                         split=True)),
                      # No PyTorch call rasterizes pair lists.
                      library_ms=None))
 
@@ -494,14 +628,53 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     pmain = run("pcf_taps", "frame: deferred resolve",
                 pcf_cuda.compute_pcf_vmem, (sm, sc), pkw, cmp_small)
     rng = np.random.default_rng(7)
-    wild = torch.from_numpy(np.concatenate(
-        [rng.uniform(-1.5, 2.5, (37, 53, 2)), rng.uniform(-0.2, 1.2, (37, 53, 1)),
-         rng.uniform(-0.5, 2.0, (37, 53, 1))], -1).astype(np.float32)).cuda()
+
+    def coords(h, w, uv, z=(-0.2, 1.2), wq=(-0.5, 2.0)):
+        return torch.from_numpy(np.concatenate(
+            [rng.uniform(*uv, (h, w, 2)), rng.uniform(*z, (h, w, 1)),
+             rng.uniform(*wq, (h, w, 1))], -1).astype(np.float32)).cuda()
+
+    wild = coords(37, 53, (-1.5, 2.5))
     sm_small = torch.from_numpy(
         rng.random((96, 160)).astype(np.float32)).cuda()
-    run("pcf_taps", "ragged 37x53, wrap + out of range, radius 1",
-        pcf_cuda.compute_pcf_vmem, (sm_small, wild),
-        dict(radius=1, scale=1.5, bias=0.01), cmp_small)
+    # The frame's radius 2 takes the window kernel; other radii the direct
+    # taps with a run-time radius.
+    for radius in (1, 3, 0, 4):
+        run("pcf_taps", f"ragged 37x53, wrap + out of range, radius {radius}",
+            pcf_cuda.compute_pcf_vmem, (sm_small, wild),
+            dict(radius=radius, scale=1.5, bias=0.01), cmp_small)
+    tiny = torch.from_numpy(rng.random((5, 5)).astype(np.float32)).cuda()
+    for radius, scale in ((2, 1.5), (3, 2.5)):
+        run("pcf_taps", f"5x5 map (the footprint wraps twice), radius "
+            f"{radius}, scale {scale}", pcf_cuda.compute_pcf_vmem,
+            (tiny, wild), dict(radius=radius, scale=scale, bias=0.0),
+            cmp_small)
+    far = coords(64, 96, (-1e3, 1e3), z=(0.0, 1.0), wq=(0.5, 2.0))
+    run("pcf_taps", "frame's map, coordinates of +-1e3 map widths",
+        pcf_cuda.compute_pcf_vmem, (sm, far), pkw, cmp_small)
+    huge = coords(64, 96, (-1e9, 1e9), z=(0.0, 1.0), wq=(0.5, 2.0))
+    run("pcf_taps", "frame's map, coordinates of +-1e9 (int32 saturates)",
+        pcf_cuda.compute_pcf_vmem, (sm, huge), pkw, cmp_small)
+    # Smooth coordinates: the block windows wrap across the map's edges,
+    # and on a 5x5 map they are wider than the map.
+    yy, xx = np.meshgrid(np.arange(40), np.arange(96), indexing="ij")
+    smooth = torch.from_numpy(np.stack([
+        0.985 + 0.0004 * xx + 0.00005 * yy, 0.99 + 0.0003 * yy + 0.0001 * xx,
+        0.2 + 0.6 * rng.random((40, 96)), np.ones((40, 96))],
+        -1).astype(np.float32)).cuda()
+    run("pcf_taps", "frame's map, smooth coordinates across its edges",
+        pcf_cuda.compute_pcf_vmem, (sm, smooth), pkw, cmp_small)
+    run("pcf_taps", "5x5 map, smooth coordinates (window wider than the map)",
+        pcf_cuda.compute_pcf_vmem, (tiny, smooth * 4.0), pkw, cmp_small)
+    # The kernel's first block of pixels all out of range: its box is empty.
+    bh, bw = PCF_BLOCK
+    edge = coords(2 * bh, 2 * bw, (0.0, 1.0), z=(0.0, 1.0), wq=(0.5, 2.0))
+    edge[:bh, :bw, 2] = 2.0 * edge[:bh, :bw, 3]
+    out_blk = pcf_cuda.compute_pcf_vmem(sm, edge, backend="cuda", **pkw)[0]
+    check(bool((out_blk[:bh, :bw] == 1.0).all()),
+          "an out-of-range block does not read 1.0")
+    run("pcf_taps", f"{2 * bh}x{2 * bw} with an all-out-of-range {bw}x{bh} "
+        "block", pcf_cuda.compute_pcf_vmem, (sm, edge), pkw, cmp_small)
     call = lambda: pcf_cuda.compute_pcf_vmem(  # noqa: E731
         sm, sc, backend="cuda", **pkw)
     times = kernel_times(call, 20)
@@ -512,6 +685,8 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
                      launches=frame_launches["pcf_taps"],
                      max_abs_err=pmain["max_abs_err"], **times,
                      plain_ms=plain_ms,
+                     **pcf_window_blocks(sc, sm.shape, pkw["radius"],
+                                         pkw["scale"]),
                      **bytes_bound(n_px * 20 + sm.numel() * 4),
                      # No PyTorch call compares 25 wrapped taps against a
                      # per-pixel depth.
@@ -962,8 +1137,8 @@ def phase_engine() -> None:
     """The engine shell, the entry point behind ``python -m
     zeldaengine_tpu_torch.engine``, at its defaults: build the default demo
     world at 1080p, tick twice, check what it presents and that every tick
-    went through K1-K5 once; hold K2 at the engine's tiles against its
-    plain version."""
+    went through K1-K5 once; hold K1 and K2 at the engine's tiles against
+    their plain versions."""
     engine = Engine(EngineConfig(width=1920, height=1080, frames_in_flight=1,
                                  present_mode="fifo"))
     ops.reset_kernel_launch_counts()
@@ -987,9 +1162,25 @@ def phase_engine() -> None:
     k2.update(tile=(kw["tile_h"], kw["tile_w"]), ms=graph_ms(
         lambda: rc.rasterize_pairs_fused(pairs, h, w, backend="cuda", **kw),
         10))
+    # K1 at the same tiles on the third tick's shadow pairs (16 pixels a
+    # thread; the split tiles merged over 4,096-pixel tiles), depth only as
+    # the frame calls it and with ids.
+    (spairs, sh, sw), skw = captured["pair_raster"]
+    check(skw["y_row"] >= 0, "the engine's shadow pairs carry no strip span")
+    k1 = {}
+    for depth_only in (True, False):
+        kkw = dict(skw, depth_only=depth_only)
+        k1["depth_only" if depth_only else "with_ids"] = compare_raster(
+            rc.rasterize_pairs(spairs, sh, sw, backend="cuda", **kkw),
+            rc.rasterize_pairs(spairs, sh, sw, backend="torch", **kkw), False)
+    k1.update(tile=(skw["tile_h"], skw["tile_w"]), split_tiles=int(
+        rc.split_parts_of(spairs, sh, sw, skw["tile_h"], skw["tile_w"])[3]
+        .sum()), ms=graph_ms(lambda: rc.rasterize_pairs(
+            spairs, sh, sw, backend="cuda", **skw), 10))
     emit("engine", ticks=2, frame_ms=engine.stats.frame_ms,
          triangles=engine.stats.triangles, launches=launches,
-         mean_level=float(frames[-1].mean()), pair_raster_fused=k2)
+         mean_level=float(frames[-1].mean()), pair_raster=k1,
+         pair_raster_fused=k2)
 
 
 def main() -> None:

@@ -3,6 +3,8 @@ interpret mode and against the port's brute-force rasterizer, the winner
 rule at exact ties, and the wrappers' device rule. The CUDA kernel itself
 is held against this plain version on the card by chip_smoke.py."""
 
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -106,24 +108,35 @@ def test_wrappers_refuse_cpu_tensors_for_the_cuda_backend():
     assert tp.rasterize_pairs.launches == 0
 
 
-@pytest.mark.parametrize("height,width,tile_h,tile_w", [
-    (72, 96, 24, 32), (64, 128, 64, 32), (64, 128, 8, 128), (72, 96, 24, 24)])
+@pytest.mark.parametrize("height,width,tile_h,tile_w,shadow", [
+    pytest.param(72, 96, 24, 32, False, id="72-96-24-32"),
+    pytest.param(64, 128, 64, 32, False, id="64-128-64-32"),
+    pytest.param(64, 128, 8, 128, False, id="64-128-8-128"),
+    pytest.param(72, 96, 24, 24, False, id="72-96-24-24"),
+    pytest.param(64, 128, 64, 32, True, id="shadow-64-128-64-32")])
 def test_strip_walk_skips_only_pairs_that_cover_nothing(height, width,
-                                                        tile_h, tile_w):
-    """``strip_walk_hits`` / ``strip_walk_tests`` model what kernel
-    ``pair_raster_fused`` tests: no pair a warp skips covers a pixel of that
-    warp (the skip is exact), and without a span column every warp that
-    owns pixels tests every pair against all of its 32 * NPP slots."""
+                                                        tile_h, tile_w,
+                                                        shadow):
+    """``strip_walk_hits`` / ``strip_walk_tests`` model what the strip walk
+    of kernels ``pair_raster_fused`` and ``pair_raster`` tests: no pair a
+    warp skips covers a pixel of that warp (the skip is exact), and without
+    a span column every warp that owns pixels tests every pair against all
+    of its 32 * NPP slots. ``shadow``: the shadow map's records (no
+    payload, 16 columns, the span in column 13), as kernel ``pair_raster``
+    gets them."""
     clip = _random_clip(21, n=300)
     clip[5, 0, 3] = -0.5  # crosses the camera plane: full-screen bbox
     ts = tr.triangle_setup(torch.from_numpy(clip), width, height,
                            two_sided=True)
-    n_extra = tp.fused_extra_width(need_uv=False, need_combo=False)
-    extra = torch.from_numpy(
+    n_extra = 0 if shadow else tp.fused_extra_width(need_uv=False,
+                                                    need_combo=False)
+    extra = None if shadow else torch.from_numpy(
         np.random.default_rng(4).random((300, n_extra)).astype(np.float32))
     pairs = tp.build_pairs(ts, width, height, tile_h, tile_w, expand=4,
                            extra=extra, sort_z=True, ysort_sub_rows=8)
     y_row = 12 + n_extra + 1  # after the payload and the z column
+    if shadow:
+        assert pairs.records.shape[1] == 16 and y_row == 13
     tiles, pids, hit = tp.strip_walk_hits(pairs, height, width, tile_h,
                                           tile_w, 8, y_row)
     # Coverage of every (tile, pair) entry at every pixel of the tile, by
@@ -153,11 +166,91 @@ def test_strip_walk_skips_only_pairs_that_cover_nothing(height, width,
     assert int(full.sum()) == tiles.shape[0] * owning * run
     assert int(skipped.sum()) < int(full.sum())
     # The wrapper names the span column and the strip height it is given.
+    raster = tp.rasterize_pairs if shadow else functools.partial(
+        tp.rasterize_pairs_fused, need_uv=False, has_combo=False)
     with pytest.raises(ValueError, match="not a column"):
-        tp.rasterize_pairs_fused(pairs, height, width, tile_h=tile_h,
-                                 tile_w=tile_w, y_row=pairs.records.shape[1],
-                                 need_uv=False, has_combo=False)
+        raster(pairs, height, width, tile_h=tile_h, tile_w=tile_w,
+               y_row=pairs.records.shape[1])
     with pytest.raises(ValueError, match="sub_rows"):
-        tp.rasterize_pairs_fused(pairs, height, width, tile_h=tile_h,
-                                 tile_w=tile_w, sub_rows=0, y_row=y_row,
-                                 need_uv=False, has_combo=False)
+        raster(pairs, height, width, tile_h=tile_h, tile_w=tile_w,
+               sub_rows=0, y_row=y_row)
+
+
+@pytest.mark.parametrize("depth_only", [True, False])
+@pytest.mark.parametrize("with_init", [False, True])
+def test_split_merge_equals_the_plain_walk(depth_only, with_init):
+    """Kernel ``pair_raster``'s split of crowded tiles, in PyTorch
+    (``rasterize_pairs_split_plain``): the plain walk over contiguous parts
+    of each tile's sequence, merged by the 64-bit (depth, pair id + 1) key
+    with init keyed as id 0, equals the plain walk over the whole sequence
+    bit for bit, but for the sign of a winning zero: the keys fold -0.0
+    into +0.0. Parts of 4 pairs (the kernel stages 64) put many part
+    boundaries into a small stream; triples of coincident triangles place
+    exact depth ties across them, init_depth equals a candidate's depth
+    at half the pixels, where init must win, and one triangle's depth plane
+    is -0.0, so it wins with a depth of -0.0 wherever it covers."""
+    clip = _random_clip(31, n=240)
+    clip[5, 0, 3] = -0.5  # crosses the camera plane: a supertile pair
+    clip[60:120] = clip[0:60]
+    clip[120:180] = clip[0:60]
+    ts = tr.triangle_setup(torch.from_numpy(clip), W, H, two_sided=True)
+    pairs = tp.build_pairs(ts, W, H, 32, 32, expand=4, sort_z=True,
+                           ysort_sub_rows=8)
+    split = dict(split_parts=8, split_min_chunks=1, chunk=4)
+    tiles, pids, part, split_tiles = tp.split_parts_of(pairs, H, W, 32, 32,
+                                                       **split)
+    assert bool(split_tiles.all())
+    # A tile's sequence (dense, supertile, global pairs) runs 0..n-1 in
+    # ascending pair id, and its parts follow it in order.
+    _, _, seq = tp._tile_pair_seq(pairs, H // 32, W // 32, 32, 32)
+    order = torch.argsort(tiles * (1 << 32) + seq)
+    t, sq, pi, pa = tiles[order], seq[order], pids[order], part[order]
+    first = torch.ones_like(t, dtype=torch.bool)
+    first[1:] = t[1:] != t[:-1]
+    same = ~first[1:]
+    assert bool((sq[first] == 0).all())
+    assert bool((sq[1:][same] == sq[:-1][same] + 1).all())
+    assert bool((pi[1:][same] > pi[:-1][same]).all())
+    assert bool((pa[1:][same] >= pa[:-1][same]).all())
+    assert int((pairs.sends - pairs.sstarts).sum()) > 0
+    # Some triple of coincident pairs of one tile lies in two parts.
+    copies = tiles * 60 + pairs.pair_tri.long()[pids] % 60
+    lo = torch.full((int(copies.max()) + 1,), 99).scatter_reduce(
+        0, copies, part, "amin")
+    hi = torch.full_like(lo, -1).scatter_reduce(0, copies, part, "amax")
+    assert bool((hi > lo).any())
+    # A triangle that wins about 64 pixels gets depth -0.0 everywhere.
+    wins = tp.rasterize_pairs_plain(pairs, H, W, None, 32, 32)[1]
+    counts = torch.bincount(wins[wins >= 0].long())
+    tri = int((counts - 64).abs().argmin())
+    pairs.records[pairs.pair_tri == tri, 9:12] = -0.0
+    init = None
+    if with_init:
+        rng = np.random.default_rng(3)
+        d0 = tp.rasterize_pairs_plain(pairs, H, W, None, 32, 32, True)
+        init = torch.from_numpy(np.where(
+            rng.random((H, W)) < 0.5, d0.numpy(),
+            rng.uniform(0.3, 1.0, (H, W))).astype(np.float32))
+    want = tp.rasterize_pairs_plain(pairs, H, W, init, 32, 32, depth_only)
+    got = tp.rasterize_pairs_split_plain(pairs, H, W, init, 32, 32,
+                                         depth_only, **split)
+    if depth_only:
+        got, want = (got,), (want,)
+    bits = lambda t: t.view(torch.int32).numpy()  # noqa: E731
+    minus_zero = bits(torch.tensor(-0.0))
+    assert (bits(want[0]) == minus_zero).sum() >= 32
+    # Every tile is split: a candidate's winning -0.0 comes out as +0.0;
+    # an init_depth of -0.0 wins the tie and stays.
+    keep = (np.zeros((H, W), bool) if init is None
+            else bits(init) == minus_zero)
+    assert keep.sum() >= (16 if with_init else 0)
+    np.testing.assert_array_equal(
+        bits(got[0]), np.where(keep, bits(want[0]), bits(want[0] + 0.0)))
+    if not depth_only:
+        np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+        assert (want[1].numpy() >= 0).mean() > 0.05
+    # At the kernel's own part sizes the stream is not split: the tiles
+    # keep their one-part result, -0.0 included.
+    np.testing.assert_array_equal(
+        bits(tp.rasterize_pairs_split_plain(pairs, H, W, init, 32, 32, True)),
+        bits(want[0]))

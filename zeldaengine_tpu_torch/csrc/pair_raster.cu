@@ -1,99 +1,238 @@
-// K1 pair_raster: exact-pair tiled visibility rasterizer.
+// K1 pair_raster: exact-pair tiled visibility rasterizer (the shadow map).
 //
 // Replaces: zeldaengine_tpu/ops/rasterize_pallas.py::_pair_kernel (entry
-// rasterize_pairs). One thread block per screen tile walks the tile's
-// dense pair range, then its supertile range, then the global bucket;
-// per (pixel, pair) it evaluates three edge functions at the pixel
-// centre and the barycentric depth d = sum e_i * zc_i, and keeps the
-// minimum depth and (unless depth_only) the lowest pair id at that depth,
-// mapped to the original triangle id through pair_tri.
+// rasterize_pairs). Per (pixel, pair) it evaluates three edge functions at
+// the pixel centre and the barycentric depth d = sum e_i * zc_i, and keeps
+// the minimum depth and (unless depth_only) the lowest pair id at that
+// depth, mapped to the original triangle id through pair_tri; init_depth
+// wins ties.
 //
-// Bound on this card: operations. Each staged pair costs every pixel of
-// the tile ~25 fp32 operations while the bytes are tiny (48 B per pair
-// per tile, one depth and one id per pixel), so the walk is limited by
-// the fp32 rate, not by memory. The design keeps the per-pixel state in
-// registers and broadcasts record values from shared memory so that the
-// inner loop is pure arithmetic; it does not yet skip pairs whose
-// bounding box misses a thread's pixels (the record's packed row span is
-// ignored: results are identical, work is not minimal).
-#include "pair_walk.cuh"
+// Bound on this card: operations (26 fp32 operations per pixel-pair test;
+// the bytes are a 64-byte record per pair and one or two words per pixel).
+// Shadow triangles are small: a (tile, pair) entry covers ~86 of a 64x32
+// tile's 2,048 pixels. What the design does about it:
+// - Phase 1 is the strip walk of strip_walk.cuh, shared with K2: warps own
+//   8-row strips and skip, per staged chunk, every pair whose packed strip
+//   span (record column y_row, which build_pairs(ysort_sub_rows=sub_rows)
+//   appends) misses their rows or one of whose edges excludes all their
+//   pixels; records arrive through a three-stage cp.async ring. With
+//   y_row < 0 every pair is tested.
+// - Crowded tiles are split. The shadow pairs fall unevenly on the tiles
+//   (a few hold many times the mean), and a block walks its pairs alone,
+//   so the grid gives each tile n_parts blocks, side by side: block
+//   t * n_parts + p walks the p-th contiguous, chunk-aligned part of tile
+//   t's pair sequence
+//   (parts of at least min_chunks chunks; blocks past the end exit). A
+//   part keeps ascending pair order, so its local winner is the lowest
+//   pair id among its minimum-depth candidates. A tile whose sequence fits
+//   in one part is stored directly. Split tiles merge exactly with
+//   atomicMin: depth only, on the depth's order-preserving bits; with
+//   ids, on the 64-bit key (depth bits << 32) | (pair id + 1).
+//   merge_parts_kernel then takes the minimum with init_depth keyed as id
+//   0 (it wins ties) and writes depth and triangle id. The keys take -0.0
+//   as +0.0 (d < best treats them as one depth), so a pair's winning depth
+//   of -0.0 comes out of a split tile as +0.0: the one trace of the split
+//   in the result. Nothing is read back to the host, so the launch can be
+//   captured in a CUDA graph.
+//
+// Arithmetic is written in the operation order of the plain PyTorch
+// version (ops/rasterize_cuda.py) and the file is compiled with
+// -fmad=false, so coverage and depth agree with it bit for bit.
+#include <climits>
+
+#include "strip_walk.cuh"
 
 namespace {
 
-template <int NPP, bool DEPTH_ONLY>
-__global__ void __launch_bounds__(zk::kThreads) pair_raster_kernel(
+using zk::strip::Seq;
+
+// Three blocks of 256 threads a multiprocessor up to 8 pixels a thread, as
+// in pair_raster_fused.cu.
+template <int NPP>
+constexpr int kMinBlocks = NPP <= 8 ? 3 : 1;
+
+// The chunks [ch0, ch1) of part p of a tile's sequence; split: the
+// sequence spans more than one part.
+struct Part {
+  int ch0, ch1;
+  bool split;
+};
+
+__device__ __forceinline__ Part part_of(const Seq& s, int n_parts,
+                                        int min_chunks, int p) {
+  const int n = zk::strip::n_chunks(s);
+  const int per = max((n + n_parts - 1) / n_parts, min_chunks);
+  Part r;
+  r.ch0 = p * per;
+  r.ch1 = min(n, r.ch0 + per);
+  r.split = per < n;
+  return r;
+}
+
+// Order-preserving bits of a float (unsigned compare = float compare), with
+// -0.0 taken as +0.0.
+__device__ __forceinline__ unsigned ordered(float d) {
+  const unsigned u = __float_as_uint(d == 0.0f ? 0.0f : d);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_ordered(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k ^ 0x80000000u) : ~k);
+}
+
+template <int NPP, bool X1, bool DEPTH_ONLY>
+__global__ void __launch_bounds__(zk::kThreads, kMinBlocks<NPP>)
+    pair_raster_kernel(
     const float* __restrict__ records, int rec_w,
     const int* __restrict__ starts, const int* __restrict__ ends,
     const int* __restrict__ sstarts, const int* __restrict__ sends,
     const int* __restrict__ gbounds, const int* __restrict__ pair_tri,
     const float* __restrict__ init_depth, float* __restrict__ depth,
-    int* __restrict__ tid, int width, int tile_h, int tile_w, int n_tx,
-    int n_sx, int super_h, int super_w) {
+    int* __restrict__ tid, void* __restrict__ keys, int width, int tile_h,
+    int tile_w, int n_tx, int n_sx, int super_h, int super_w, int sub_rows,
+    int y_row, int n_parts, int min_chunks) {
+  // Block b walks part b % n_parts of tile b / n_parts: the parts of a
+  // crowded tile start together, early in the grid.
+  const int p = blockIdx.x % n_parts;
   const zk::TileCtx c = zk::tile_context(starts, ends, sstarts, sends,
                                          gbounds, n_tx, n_sx, super_h,
-                                         super_w);
+                                         super_w, blockIdx.x / n_parts);
+  const Seq s = zk::strip::make_seq(c);
+  const Part part = part_of(s, n_parts, min_chunks, p);
+  // Part 0 always runs: it stores a tile with no pairs.
+  if (p > 0 && part.ch0 >= part.ch1) return;
   float px[NPP], py[NPP], best[NPP];
-  int gidx[NPP], bid[NPP];
-  zk::pixel_setup<NPP>(c, tile_h, tile_w, width, init_depth, px, py, best,
-                       gidx);
-  zk::walk_ranges<NPP, !DEPTH_ONLY>(c, records, rec_w, px, py, best, bid);
+  int bid[NPP];
+  zk::strip::pixel_setup<NPP>(c, tile_h, tile_w, width, init_depth, px, py,
+                              best);
+  zk::strip::walk<NPP, X1>(c, s, part.ch0, part.ch1, records, rec_w, y_row,
+                           sub_rows, tile_h, tile_w, px, py, best, bid);
 #pragma unroll
   for (int k = 0; k < NPP; ++k) {
-    if (gidx[k] < 0) continue;
-    depth[gidx[k]] = best[k];
-    if (!DEPTH_ONLY) tid[gidx[k]] = bid[k] >= 0 ? pair_tri[bid[k]] : -1;
+    const int g = zk::strip::pixel_index<NPP>(c, tile_h, tile_w, width, k);
+    if (g < 0) continue;
+    if (!part.split) {
+      depth[g] = best[k];
+      if (!DEPTH_ONLY) tid[g] = bid[k] >= 0 ? pair_tri[bid[k]] : -1;
+    } else if (DEPTH_ONLY) {
+      // best is init_depth where the part has no candidate: the minimum
+      // over the parts is min(init, every candidate).
+      atomicMin(static_cast<unsigned*>(keys) + g, ordered(best[k]));
+    } else if (bid[k] >= 0) {
+      atomicMin(static_cast<unsigned long long*>(keys) + g,
+                ((unsigned long long)ordered(best[k]) << 32) |
+                    (unsigned)(bid[k] + 1));
+    }
   }
 }
 
-template <int NPP>
-void launch(bool depth_only, dim3 grid, cudaStream_t s,
-            const float* records, int rec_w, const int* starts,
-            const int* ends, const int* sstarts, const int* sends,
-            const int* gbounds, const int* pair_tri, const float* init_depth,
-            float* depth, int* tid, int width, int tile_h, int tile_w,
-            int n_tx, int n_sx, int super_h, int super_w) {
-  if (depth_only) {
-    pair_raster_kernel<NPP, true><<<grid, zk::kThreads, 0, s>>>(
-        records, rec_w, starts, ends, sstarts, sends, gbounds, pair_tri,
-        init_depth, depth, tid, width, tile_h, tile_w, n_tx, n_sx, super_h,
-        super_w);
-  } else {
-    pair_raster_kernel<NPP, false><<<grid, zk::kThreads, 0, s>>>(
-        records, rec_w, starts, ends, sstarts, sends, gbounds, pair_tri,
-        init_depth, depth, tid, width, tile_h, tile_w, n_tx, n_sx, super_h,
-        super_w);
+// Depth and triangle id of the split tiles from their merged keys.
+template <bool DEPTH_ONLY>
+__global__ void __launch_bounds__(zk::kThreads) merge_parts_kernel(
+    const int* __restrict__ starts, const int* __restrict__ ends,
+    const int* __restrict__ sstarts, const int* __restrict__ sends,
+    const int* __restrict__ gbounds, const int* __restrict__ pair_tri,
+    const float* __restrict__ init_depth, float* __restrict__ depth,
+    int* __restrict__ tid, const void* __restrict__ keys, int width,
+    int tile_h, int tile_w, int n_tx, int n_sx, int super_h, int super_w,
+    int n_parts, int min_chunks) {
+  const zk::TileCtx c = zk::tile_context(starts, ends, sstarts, sends,
+                                         gbounds, n_tx, n_sx, super_h,
+                                         super_w, blockIdx.x);
+  if (!part_of(zk::strip::make_seq(c), n_parts, min_chunks, 0).split) return;
+  for (int p = threadIdx.x; p < tile_h * tile_w; p += zk::kThreads) {
+    const int g =
+        (c.ty * tile_h + p / tile_w) * width + c.tx * tile_w + p % tile_w;
+    const float init = init_depth ? init_depth[g] : 1.0f;
+    if (DEPTH_ONLY) {
+      const unsigned k = static_cast<const unsigned*>(keys)[g];
+      depth[g] = k < ordered(init) ? from_ordered(k) : init;
+    } else {
+      const unsigned long long k =
+          static_cast<const unsigned long long*>(keys)[g];
+      // init_depth is keyed as id 0: below every candidate at its depth.
+      if (k < ((unsigned long long)ordered(init) << 32)) {
+        depth[g] = from_ordered((unsigned)(k >> 32));
+        tid[g] = pair_tri[(int)(k & 0xffffffffu) - 1];
+      } else {
+        depth[g] = init;
+        tid[g] = -1;
+      }
+    }
   }
 }
 
 }  // namespace
 
-// height/width are multiples of tile_h/tile_w. init_depth may be null
-// (clear value 1.0); tid may be null when depth_only. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a tile above 4096 px.
+// height/width are multiples of tile_h/tile_w; records 16-byte aligned with
+// rec_w a multiple of 4 (cp.async stages 16-byte pieces of each row).
+// init_depth may be null (clear value 1.0); tid may be null when
+// depth_only. y_row >= 0 names the packed strip span column (strips of
+// sub_rows rows). n_parts > 1 splits each tile's sequence into up to
+// n_parts parts of at least min_chunks 64-pair chunks; keys is then a
+// scratch buffer of height * width words (depth_only: 32-bit, else 64-bit),
+// which this function fills before the raster. Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int zk_pair_raster(
     const void* records, int rec_w, const void* starts, const void* ends,
     const void* sstarts, const void* sends, const void* gbounds,
     const void* pair_tri, const void* init_depth, void* depth, void* tid,
-    int height, int width, int tile_h, int tile_w, int n_sx, int super_h,
-    int super_w, int depth_only, void* stream) {
+    void* keys, int height, int width, int tile_h, int tile_w, int n_sx,
+    int super_h, int super_w, int sub_rows, int y_row, int n_parts,
+    int min_chunks, int depth_only, void* stream) {
   const int n_tx = width / tile_w;
-  const int n_ty = height / tile_h;
-  const dim3 grid(n_tx * n_ty);
+  const int n_tiles = n_tx * (height / tile_h);
+  if (rec_w % 4 != 0 || ((size_t)records & 15) != 0 || y_row >= rec_w ||
+      (y_row >= 0 && sub_rows <= 0) || n_parts < 1 || min_chunks < 1 ||
+      (n_parts > 1 && keys == nullptr) ||
+      (long long)n_tiles * n_parts > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define ZK_ARGS                                                            \
-  depth_only != 0, grid, s, (const float*)records, rec_w,                  \
-      (const int*)starts, (const int*)ends, (const int*)sstarts,           \
-      (const int*)sends, (const int*)gbounds, (const int*)pair_tri,        \
-      (const float*)init_depth, (float*)depth, (int*)tid, width, tile_h,   \
-      tile_w, n_tx, n_sx, super_h, super_w
+  if (n_parts > 1) {
+    const cudaError_t e = cudaMemsetAsync(
+        keys, 0xff, (size_t)height * width * (depth_only ? 4 : 8), s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid(n_tiles * n_parts);
+  const bool x1 = tile_w == 32;  // a lane's pixels share one column
+#define ZK_LAUNCH_V(NPP, X1, DO)                                            \
+  pair_raster_kernel<NPP, X1, DO><<<grid, zk::kThreads, 0, s>>>(            \
+      (const float*)records, rec_w, (const int*)starts, (const int*)ends,   \
+      (const int*)sstarts, (const int*)sends, (const int*)gbounds,          \
+      (const int*)pair_tri, (const float*)init_depth, (float*)depth,        \
+      (int*)tid, keys, width, tile_h, tile_w, n_tx, n_sx, super_h, super_w, \
+      sub_rows, y_row, n_parts, min_chunks)
+#define ZK_LAUNCH_X(NPP, DO)           \
+  {                                     \
+    if (x1) ZK_LAUNCH_V(NPP, true, DO); \
+    else ZK_LAUNCH_V(NPP, false, DO);   \
+  }
+#define ZK_LAUNCH(NPP)                     \
+  {                                        \
+    if (depth_only) ZK_LAUNCH_X(NPP, true) \
+    else ZK_LAUNCH_X(NPP, false)           \
+  }
   switch (zk::pixels_per_thread(tile_h, tile_w)) {
-    case 1: launch<1>(ZK_ARGS); break;
-    case 2: launch<2>(ZK_ARGS); break;
-    case 4: launch<4>(ZK_ARGS); break;
-    case 8: launch<8>(ZK_ARGS); break;
-    case 16: launch<16>(ZK_ARGS); break;
+    case 1: ZK_LAUNCH(1); break;
+    case 2: ZK_LAUNCH(2); break;
+    case 4: ZK_LAUNCH(4); break;
+    case 8: ZK_LAUNCH(8); break;
+    case 16: ZK_LAUNCH(16); break;
     default: return (int)cudaErrorInvalidValue;
   }
-#undef ZK_ARGS
+#undef ZK_LAUNCH
+#undef ZK_LAUNCH_X
+#undef ZK_LAUNCH_V
+  if (n_parts > 1) {
+#define ZK_MERGE(DO)                                                         \
+  merge_parts_kernel<DO><<<n_tiles, zk::kThreads, 0, s>>>(                   \
+      (const int*)starts, (const int*)ends, (const int*)sstarts,             \
+      (const int*)sends, (const int*)gbounds, (const int*)pair_tri,          \
+      (const float*)init_depth, (float*)depth, (int*)tid, keys, width,       \
+      tile_h, tile_w, n_tx, n_sx, super_h, super_w, n_parts, min_chunks)
+    if (depth_only) ZK_MERGE(true);
+    else ZK_MERGE(false);
+#undef ZK_MERGE
+  }
   return (int)cudaGetLastError();
 }

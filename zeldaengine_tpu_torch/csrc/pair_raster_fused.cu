@@ -54,13 +54,15 @@ __global__ void __launch_bounds__(zk::kThreads, kMinBlocks<NPP>)
     float combo_const) {
   const zk::TileCtx c = zk::tile_context(starts, ends, sstarts, sends,
                                          gbounds, n_tx, n_sx, super_h,
-                                         super_w);
+                                         super_w, blockIdx.x);
   float px[NPP], py[NPP], best[NPP];
   int bid[NPP];
   zk::strip::pixel_setup<NPP>(c, tile_h, tile_w, width, init_depth, px, py,
                               best);
-  zk::strip::walk<NPP, X1>(c, records, rec_w, y_row, sub_rows, tile_h,
-                           tile_w, px, py, best, bid);
+  const zk::strip::Seq s = zk::strip::make_seq(c);
+  zk::strip::walk<NPP, X1>(c, s, 0, zk::strip::n_chunks(s), records, rec_w,
+                           y_row, sub_rows, tile_h, tile_w, px, py, best,
+                           bid);
 
   const size_t plane = (size_t)height * width;
   const int corner_w = need_uv ? 11 : 9;

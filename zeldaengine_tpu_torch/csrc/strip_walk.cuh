@@ -1,5 +1,6 @@
-// Phase 1 of the GBuffer rasterizer (pair_raster_fused.cu): the strip walk.
-// One thread block walks one screen tile's pair ranges and keeps, per
+// The strip walk: phase 1 of both pair rasterizers (pair_raster.cu,
+// pair_raster_fused.cu). One thread block walks one screen tile's pair
+// ranges (or, in pair_raster.cu, one contiguous part of them) and keeps, per
 // pixel, the minimum depth and the lowest pair id among the minimum-depth
 // candidates.
 //
@@ -37,9 +38,42 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "pair_walk.cuh"  // TileCtx, tile_context, kThreads
-
 namespace zk {
+
+constexpr int kThreads = 256;
+
+struct TileCtx {
+  int tx, ty;        // tile coordinates
+  int ranges[3][2];  // dense, supertile, global pair ranges [lo, hi)
+};
+
+// Tile t and its three pair ranges.
+__device__ __forceinline__ TileCtx tile_context(
+    const int* __restrict__ starts, const int* __restrict__ ends,
+    const int* __restrict__ sstarts, const int* __restrict__ sends,
+    const int* __restrict__ gbounds, int n_tx, int n_sx, int super_h,
+    int super_w, int t) {
+  TileCtx c;
+  c.ty = t / n_tx;
+  c.tx = t % n_tx;
+  const int st = (c.ty / super_h) * n_sx + (c.tx / super_w);
+  c.ranges[0][0] = starts[t];
+  c.ranges[0][1] = ends[t];
+  c.ranges[1][0] = sstarts[st];
+  c.ranges[1][1] = sends[st];
+  c.ranges[2][0] = gbounds[0];
+  c.ranges[2][1] = gbounds[1];
+  return c;
+}
+
+// Pixels per thread (NPP) for a tile, rounded up to a power of two.
+inline int pixels_per_thread(int tile_h, int tile_w) {
+  const int need = (tile_h * tile_w + kThreads - 1) / kThreads;
+  int npp = 1;
+  while (npp < need) npp *= 2;
+  return npp;
+}
+
 namespace strip {
 
 constexpr int kChunk = 64;   // pairs per stage (two per lane for the ballot)
@@ -96,14 +130,15 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Stage the chunk starting at virtual index v0 (one committed group per
-// call, empty past the end so that the group count stays uniform).
+// call, empty past v_end so that the group count stays uniform).
 __device__ __forceinline__ void issue_chunk(Stage& st, const Seq& s,
                                             const float* __restrict__ records,
-                                            int rec_w, int span_q, int v0) {
+                                            int rec_w, int span_q, int v0,
+                                            int v_end) {
   const int j = threadIdx.x / kPieces;
   const int q = threadIdx.x % kPieces;
   const int v = v0 + j;
-  if (v < s.total && (q < 3 || span_q >= 0)) {
+  if (v < v_end && (q < 3 || span_q >= 0)) {
     const float* row = records + (size_t)seq_pair(s, v) * rec_w;
     if (q < 3) {
       cp_async16(&st.rast[j * 3 + q], row + 4 * q);
@@ -212,13 +247,21 @@ __device__ __forceinline__ bool pair_meets(const Stage& st, int j, int span_e,
            edge_misses(q1.z, q1.w, c2, r));
 }
 
+__device__ __forceinline__ int n_chunks(const Seq& s) {
+  return (s.total + kChunk - 1) / kChunk;
+}
+
+// Walks chunks [ch0, ch1) of the tile's sequence s (virtual indices
+// [ch0 * kChunk, min(ch1 * kChunk, s.total))); bid[k] is the winner's pair
+// id, or -1.
 template <int NPP, bool X1>
 __device__ __forceinline__ void walk(
-    const TileCtx& c, const float* __restrict__ records, int rec_w,
-    int y_row, int sub_rows, int tile_h, int tile_w, const float (&px)[NPP],
-    const float (&py)[NPP], float (&best)[NPP], int (&bid)[NPP]) {
+    const TileCtx& c, const Seq& s, int ch0, int ch1,
+    const float* __restrict__ records, int rec_w, int y_row, int sub_rows,
+    int tile_h, int tile_w, const float (&px)[NPP], const float (&py)[NPP],
+    float (&best)[NPP], int (&bid)[NPP]) {
   __shared__ Stage stages[kStages];
-  const Seq s = make_seq(c);
+  const int v_end = min(s.total, ch1 * kChunk);
   const WarpRows wr = warp_rows<NPP>(c, tile_h, tile_w);
   const int lane = threadIdx.x % 32;
   const int span_q = y_row >= 0 ? y_row / 4 : -1;
@@ -227,25 +270,25 @@ __device__ __forceinline__ void walk(
   const Rect rect = {(float)(c.tx * tile_w) + 0.5f,
                      (float)(c.tx * tile_w + tile_w - 1) + 0.5f,
                      wr.r0 + 0.5f, wr.r1 + 0.5f};
-  const int n_chunks = (s.total + kChunk - 1) / kChunk;
 #pragma unroll
   for (int k = 0; k < NPP; ++k) bid[k] = -1;
 
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i)
-    issue_chunk(stages[i], s, records, rec_w, span_q, i * kChunk);
+    issue_chunk(stages[i], s, records, rec_w, span_q, (ch0 + i) * kChunk,
+                v_end);
 
-  for (int ch = 0; ch < n_chunks; ++ch) {
+  for (int ch = ch0; ch < ch1; ++ch) {
     // Chunk ch has landed (for this thread's piece; the barrier makes every
     // piece visible), and every warp is done with chunk ch - 1, whose stage
     // the next issue overwrites.
     cp_async_wait<kStages - 2>();
     __syncthreads();
-    issue_chunk(stages[(ch + kStages - 1) % kStages], s, records, rec_w,
-                span_q, (ch + kStages - 1) * kChunk);
-    const Stage& st = stages[ch % kStages];
+    issue_chunk(stages[(ch - ch0 + kStages - 1) % kStages], s, records,
+                rec_w, span_q, (ch + kStages - 1) * kChunk, v_end);
+    const Stage& st = stages[(ch - ch0) % kStages];
     const int v0 = ch * kChunk;
-    const int n = min(kChunk, s.total - v0);
+    const int n = min(kChunk, v_end - v0);
     uint64_t m;
     if (!wr.any) {
       m = 0;

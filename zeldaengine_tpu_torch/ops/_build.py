@@ -113,18 +113,21 @@ _F = ctypes.c_float
 # C signatures (see the sources); every pointer and the stream is c_void_p.
 _SIGNATURES = {
     # records, rec_w, starts, ends, sstarts, sends, gbounds, pair_tri,
-    # init_depth, depth, tid, height, width, tile_h, tile_w, n_sx, super_h,
-    # super_w, depth_only, stream
+    # init_depth, depth, tid, keys, height, width, tile_h, tile_w, n_sx,
+    # super_h, super_w, sub_rows, y_row, n_parts, min_chunks, depth_only,
+    # stream
     "zk_pair_raster": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _VP],
-    # ... + attrs, sub_rows, y_row, texture_size, need_uv, has_combo,
-    # combo_const
+                       _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _VP],
+    # records ... tid (as zk_pair_raster), attrs, height, width, tile_h,
+    # tile_w, n_sx, super_h, super_w, sub_rows, y_row, texture_size,
+    # need_uv, has_combo, combo_const, stream
     "zk_pair_raster_fused": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                              _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _F, _VP],
-    # shadowmap, dim_y, dim_x, shadow_coord, out, n_pixels, radius, scale,
-    # bias, stream
-    "zk_pcf_taps": [_VP, _I, _I, _VP, _VP, _I, _I, _F, _F, _VP],
+    # shadowmap, dim_y, dim_x, shadow_coord, out, height, width, radius,
+    # scale, bias, stream
+    "zk_pcf_taps": [_VP, _I, _I, _VP, _VP, _I, _I, _I, _F, _F, _VP],
     # planes, channels, size, uv, active, out, n_pixels, stream
     "zk_bilinear_tap": [_VP, _I, _I, _VP, _VP, _VP, _I, _VP],
     # acc, diffuse_color, n, p, v, roughness, ndotv, lights, tile_idx,

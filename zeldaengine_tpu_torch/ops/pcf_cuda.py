@@ -3,10 +3,13 @@
 Reference semantics: ComputePCF, Common.glsl:323-342, through the plain
 version ``compute_pcf_plain`` (= ``ops/shadow.py::compute_pcf``). Kernel
 ``pcf_taps`` (``csrc/pcf_taps.cu``) replaces the JAX package's
-``ops/pcf_vmem.py::compute_pcf_vmem``: one thread per pixel loads its
-taps straight from the shadow map, so the window-fit test, the slab rolls
-and the unfit-block recompute of that kernel have no counterpart here and
-``overflow`` is the constant 0.
+``ops/pcf_vmem.py::compute_pcf_vmem``. At the frame's radius (2) a block
+of 32x16 pixels copies the box of map texels its taps reach into shared
+memory and taps there; a block whose box does not fit, and every other
+radius, taps the map directly. Every pixel is computed, so the JAX
+kernel's slab rolls and unfit-block recompute have no counterpart and
+``overflow`` is the constant 0. The kernel wraps each axis's tap indices
+without a division per tap; ``wrap_tap_indices`` is that rule in PyTorch.
 """
 
 from __future__ import annotations
@@ -20,6 +23,22 @@ from zeldaengine_tpu_torch.ops.rasterize_cuda import _check, _use_kernel
 from zeldaengine_tpu_torch.ops.shadow import compute_pcf
 
 compute_pcf_plain = compute_pcf
+
+
+def wrap_tap_indices(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Kernel ``pcf_taps``'s repeat addressing of one axis: ``idx`` (..., K)
+    int32 holds the K = 2r+1 texel indices floor(f + scale*o) of a pixel,
+    and the result is each wrapped into [0, n), as ``torch.remainder(idx,
+    n)`` would give. Only the first index takes a remainder; index k is
+    wrap(i_0) + (i_k - i_0) in 64-bit integers, less n once, and only an
+    index more than one map width past (a map narrower than the footprint)
+    or before it takes the remainder. Exact for any int32 input."""
+    i = idx.to(torch.int64)
+    w0 = torch.remainder(i[..., :1], n)
+    t = w0 + (i - i[..., :1])
+    t = torch.where(t >= n, t - n, t)
+    t = torch.where((t >= n) | (t < 0), torch.remainder(t, n), t)
+    return t.to(torch.int32)
 
 
 def compute_pcf_vmem(shadowmap: torch.Tensor, shadow_coord: torch.Tensor,
@@ -45,14 +64,19 @@ def compute_pcf_vmem(shadowmap: torch.Tensor, shadow_coord: torch.Tensor,
     if shadow_coord.ndim != 3 or shadow_coord.shape[-1] != 4:
         raise ValueError(f"shadow_coord: expected (H, W, 4), got "
                          f"{tuple(shadow_coord.shape)}")
+    if radius < 0:
+        raise ValueError(f"radius must be >= 0, got {radius}")
     h, w = shadow_coord.shape[:2]
     sm_ptr = _check(shadowmap, "shadowmap", torch.float32, dev=dev)
     sc_ptr = _check(shadow_coord, "shadow_coord", torch.float32, dev=dev)
+    if sc_ptr % 16:
+        raise ValueError("shadow_coord: the kernel loads each coordinate as "
+                         "one float4; needs a 16-byte aligned base")
     out = torch.empty((h, w), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = _build.load().zk_pcf_taps(
             sm_ptr, shadowmap.shape[0], shadowmap.shape[1], sc_ptr,
-            out.data_ptr(), h * w, int(radius), float(scale), float(bias),
+            out.data_ptr(), h, w, int(radius), float(scale), float(bias),
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, "pcf_taps")
     compute_pcf_vmem.launches += 1

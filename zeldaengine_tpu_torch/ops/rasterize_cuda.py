@@ -12,11 +12,14 @@ Same math as ``ops/rasterize.py`` (homogeneous edge functions from
   exactly-sized range of record rows.
 - **Kernels** (``csrc/pair_raster.cu``, ``csrc/pair_raster_fused.cu``): one
   thread block per tile walks its dense, supertile and global ranges and
-  keeps per pixel the minimum depth and the lowest pair id at that depth;
-  the fused kernel skips, per warp, the pairs whose packed strip span
-  misses the warp's rows or whose edges exclude the warp's pixels
-  (``strip_walk_tests`` counts what it tests) and then interpolates the
-  winner's attributes.
+  keeps per pixel the minimum depth and the lowest pair id at that depth.
+  Both walk with ``csrc/strip_walk.cuh``, which skips, per warp, the pairs
+  whose packed strip span misses the warp's rows or whose edges exclude
+  the warp's pixels (``strip_walk_tests`` counts what it tests).
+  ``pair_raster`` splits a crowded tile's pairs over several blocks and
+  merges their winners exactly (``rasterize_pairs_split_plain`` is that
+  merge in PyTorch); the fused kernel then interpolates the winner's
+  attributes.
 
 Depth is evaluated in barycentric form, ``d = sum_i e_i * zc_i``: the
 algebraically-equivalent folded screen-linear form cancels
@@ -336,9 +339,12 @@ def build_pairs(
 # ------------------------------------------------------------ plain version
 
 
-def _tile_pair_list(pairs: PairedTriangles, n_ty: int, n_tx: int,
-                    tile_h: int, tile_w: int):
-    """Expand the three range levels to one flat (tile, pair) list."""
+def _tile_pair_seq(pairs: PairedTriangles, n_ty: int, n_tx: int,
+                   tile_h: int, tile_w: int):
+    """Expand the three range levels to one flat (tile, pair) list:
+    (tiles, pair ids, seq) with seq the entry's place in its tile's
+    sequence (dense, then supertile, then global pairs), the order the
+    kernels walk."""
     dev = pairs.records.device
     n_tiles = n_ty * n_tx
     super_h, super_w = _super_h(tile_h), _super_w(tile_w)
@@ -346,16 +352,17 @@ def _tile_pair_list(pairs: PairedTriangles, n_ty: int, n_tx: int,
     i64 = torch.int64
 
     def ranges_to_list(starts, ends):
-        # (bin, pair) for every pair of every [starts[b], ends[b]).
+        # (bin, pair, place in the range) for every pair of every
+        # [starts[b], ends[b]).
         lens = (ends - starts).to(i64).clamp_min(0)
         bins = torch.repeat_interleave(
             torch.arange(starts.shape[0], device=dev), lens)
         first = torch.cumsum(lens, 0) - lens
         within = torch.arange(bins.shape[0], device=dev) - first[bins]
-        return bins, starts.to(i64)[bins] + within
+        return bins, starts.to(i64)[bins] + within, within
 
-    d_tile, d_pair = ranges_to_list(pairs.starts, pairs.ends)
-    s_bin, s_pair = ranges_to_list(pairs.sstarts, pairs.sends)
+    d_tile, d_pair, d_seq = ranges_to_list(pairs.starts, pairs.ends)
+    s_bin, s_pair, s_within = ranges_to_list(pairs.sstarts, pairs.sends)
     # Supertile s covers tiles (sy*super_h + dy, sx*super_w + dx).
     dy = torch.arange(super_h, device=dev).repeat_interleave(super_w)
     dx = torch.arange(super_w, device=dev).repeat(super_h)
@@ -364,29 +371,46 @@ def _tile_pair_list(pairs: PairedTriangles, n_ty: int, n_tx: int,
     ok = (t_y < n_ty) & (t_x < n_tx)
     s_tile = (t_y * n_tx + t_x)[ok]
     s_pair = s_pair[:, None].expand(-1, dy.shape[0])[ok]
+    s_within = s_within[:, None].expand(-1, dy.shape[0])[ok]
     g0, g1 = int(pairs.gbounds[0]), int(pairs.gbounds[1])
     g_pairs = torch.arange(g0, max(g1, g0), device=dev)
     g_tile = torch.arange(n_tiles, device=dev).repeat_interleave(
         g_pairs.shape[0])
     g_pair = g_pairs.repeat(n_tiles)
+    # Lengths of each tile's dense and supertile ranges.
+    tile = torch.arange(n_tiles, device=dev)
+    tile_super = (tile // n_tx // super_h) * n_sx + (tile % n_tx) // super_w
+    len_d = (pairs.ends - pairs.starts).to(i64).clamp_min(0)
+    len_s = (pairs.sends - pairs.sstarts).to(i64).clamp_min(0)[tile_super]
+    seq = torch.cat([d_seq, len_d[s_tile] + s_within,
+                     (len_d + len_s)[g_tile] + (g_pair - g0)])
     return (torch.cat([d_tile, s_tile, g_tile]),
-            torch.cat([d_pair, s_pair, g_pair]))
+            torch.cat([d_pair, s_pair, g_pair]), seq)
+
+
+def _tile_pair_list(pairs: PairedTriangles, n_ty: int, n_tx: int,
+                    tile_h: int, tile_w: int):
+    """(tiles, pair ids) of ``_tile_pair_seq``."""
+    return _tile_pair_seq(pairs, n_ty, n_tx, tile_h, tile_w)[:2]
 
 
 def _plain_visibility(pairs: PairedTriangles, height: int, width: int,
                       init_depth, tile_h: int, tile_w: int,
-                      want_id: bool = True, chunk_elems: int = 1 << 22):
+                      want_id: bool = True, chunk_elems: int = 1 << 22,
+                      entries=None):
     """(depth (H, W), winner pair id (H, W) int64 or None) by the kernel's
     rule: minimum depth; lowest pair id among minimum-depth candidates;
     ``init_depth`` wins ties with id -1. Candidates are evaluated with the
-    kernel's arithmetic in the kernel's operation order."""
+    kernel's arithmetic in the kernel's operation order. ``entries``: the
+    (tiles, pair ids) to walk, by default every tile's whole sequence."""
     dev = pairs.records.device
     assert height % tile_h == 0 and width % tile_w == 0, (
         height, width, tile_h, tile_w)
     n_ty, n_tx = height // tile_h, width // tile_w
     assert pairs.starts.shape == (n_ty * n_tx,), (
         pairs.starts.shape, n_ty * n_tx)
-    tiles, pids = _tile_pair_list(pairs, n_ty, n_tx, tile_h, tile_w)
+    tiles, pids = entries if entries is not None else _tile_pair_list(
+        pairs, n_ty, n_tx, tile_h, tile_w)
     tp = tile_h * tile_w
     loc = torch.arange(tp, device=dev)
     lx, ly = loc % tile_w, loc // tile_w
@@ -454,6 +478,101 @@ def rasterize_pairs_plain(pairs: PairedTriangles, height: int, width: int,
                                    tile_w, want_id=not depth_only)
     if depth_only:
         return depth
+    return depth, _map_tid(pairs, pid)
+
+
+# Kernel pair_raster's split of crowded tiles: up to SPLIT_PARTS blocks a
+# tile, each walking a contiguous part of at least SPLIT_MIN_CHUNKS chunks
+# of SPLIT_CHUNK pairs (the strip walk's staging chunk). rasterize_pairs
+# reads SPLIT_PARTS at each call; 1 walks every tile in one block.
+SPLIT_PARTS = 8
+SPLIT_MIN_CHUNKS = 2
+SPLIT_CHUNK = 64
+
+
+def split_parts_of(pairs: PairedTriangles, height: int, width: int,
+                   tile_h: int, tile_w: int, split_parts: int = SPLIT_PARTS,
+                   split_min_chunks: int = SPLIT_MIN_CHUNKS,
+                   chunk: int = SPLIT_CHUNK):
+    """Which block of kernel ``pair_raster`` walks each (tile, pair) entry:
+    (tiles, pair ids, part, split) in ``_tile_pair_list`` order, with part
+    the entry's part of its tile's sequence and split (n_tiles,) bool the
+    tiles whose sequence spans more than one part. A tile of n chunks is
+    cut into parts of max(ceil(n / split_parts), split_min_chunks)
+    chunks."""
+    n_ty, n_tx = height // tile_h, width // tile_w
+    tiles, pids, seq = _tile_pair_seq(pairs, n_ty, n_tx, tile_h, tile_w)
+    total = torch.bincount(tiles, minlength=n_ty * n_tx)
+    n_chunks = -(-total // chunk)
+    per = torch.clamp_min(-(-n_chunks // split_parts), split_min_chunks)
+    part = (seq // chunk) // per[tiles]
+    return tiles, pids, part, per < n_chunks
+
+
+def _ordered(depth: torch.Tensor) -> torch.Tensor:
+    """int64 keys in the order of the float32 values, -0.0 taken as +0.0
+    (the kernel's order-preserving bits, as signed integers)."""
+    b = (depth + 0.0).view(torch.int32).to(torch.int64)
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+
+
+def _from_ordered(key: torch.Tensor) -> torch.Tensor:
+    b = torch.where(key < 0, key ^ 0x7FFFFFFF, key)
+    return b.to(torch.int32).view(torch.float32)
+
+
+def rasterize_pairs_split_plain(pairs: PairedTriangles, height: int,
+                                width: int, init_depth=None,
+                                tile_h: int = 32, tile_w: int = 128,
+                                depth_only: bool = False,
+                                split_parts: int = SPLIT_PARTS,
+                                split_min_chunks: int = SPLIT_MIN_CHUNKS,
+                                chunk: int = SPLIT_CHUNK):
+    """Kernel ``pair_raster``'s split in PyTorch: the plain walk over each
+    part of each tile's sequence (``split_parts_of``), merged as the kernel
+    merges it. A tile of one part keeps that part's result. Split tiles take
+    the minimum over their parts of the 64-bit key (depth bits << 32) |
+    (pair id + 1), with ``init_depth`` keyed as id 0; depth only, the
+    minimum of the depth bits and of init. Equal to
+    ``rasterize_pairs_plain`` by construction (lowest pair id among the
+    minimum-depth candidates; init wins ties), which the tests check, bit
+    for bit but for one thing: the keys fold -0.0 into +0.0, so a winning
+    depth of -0.0 on a split tile comes out as +0.0 (the two compare
+    equal, and ``d < best`` treats them as one depth)."""
+    dev = pairs.records.device
+    tiles, pids, part, split = split_parts_of(
+        pairs, height, width, tile_h, tile_w, split_parts, split_min_chunks,
+        chunk)
+    n_tx = width // tile_w
+    gy, gx = torch.meshgrid(torch.arange(height, device=dev),
+                            torch.arange(width, device=dev), indexing="ij")
+    split_px = split[(gy // tile_h) * n_tx + gx // tile_w]
+    init = (torch.ones((height, width), dtype=torch.float32, device=dev)
+            if init_depth is None else init_depth.to(torch.float32))
+    big = torch.iinfo(torch.int64).max
+    key = torch.full((height, width), big, dtype=torch.int64, device=dev)
+    first = None
+    for p in range(max(split_parts, 1)):
+        sel = part == p
+        depth_p, pid_p = _plain_visibility(
+            pairs, height, width, init, tile_h, tile_w,
+            want_id=not depth_only, entries=(tiles[sel], pids[sel]))
+        if first is None:
+            first = (depth_p, pid_p)
+        if depth_only:
+            key = torch.minimum(key, _ordered(depth_p))
+        else:
+            key = torch.minimum(key, torch.where(
+                pid_p >= 0, (_ordered(depth_p) << 32) | (pid_p + 1),
+                torch.full_like(key, big)))
+    if depth_only:
+        merged = torch.where(key < _ordered(init), _from_ordered(key), init)
+        return torch.where(split_px, merged, first[0])
+    wins = key < (_ordered(init) << 32)
+    depth = torch.where(wins, _from_ordered(key >> 32), init)
+    pid = torch.where(wins, key & 0xFFFFFFFF, torch.full_like(key, 0)) - 1
+    depth = torch.where(split_px, depth, first[0])
+    pid = torch.where(split_px, pid, first[1])
     return depth, _map_tid(pairs, pid)
 
 
@@ -563,7 +682,8 @@ def _pixels_per_thread(tile_h: int, tile_w: int) -> int:
 def strip_walk_hits(pairs: PairedTriangles, height: int, width: int,
                     tile_h: int, tile_w: int, sub_rows: int = 8,
                     y_row: int = -1):
-    """Which pairs kernel ``pair_raster_fused`` tests, per warp: (tiles,
+    """Which pairs the strip walk of kernels ``pair_raster`` and
+    ``pair_raster_fused`` tests, per warp: (tiles,
     pair ids, hits) with one row per (tile, pair) of the tile's dense,
     supertile and global ranges and hits an (N, 8) bool of the 8 warps.
 
@@ -610,8 +730,9 @@ def strip_walk_hits(pairs: PairedTriangles, height: int, width: int,
 def strip_walk_tests(pairs: PairedTriangles, height: int, width: int,
                      tile_h: int, tile_w: int, sub_rows: int = 8,
                      y_row: int = -1) -> torch.Tensor:
-    """(pixel, pair) tests kernel ``pair_raster_fused`` makes on this pair
-    stream, per tile and warp: an (n_tiles, 8) int64 tensor. A warp tests
+    """(pixel, pair) tests the strip walk (kernels ``pair_raster``,
+    ``pair_raster_fused``) makes on this pair stream, per tile and warp: an
+    (n_tiles, 8) int64 tensor. A warp tests
     all 32*NPP of its pixel slots against each pair it does not skip
     (``strip_walk_hits``)."""
     tiles, _, hit = strip_walk_hits(pairs, height, width, tile_h, tile_w,
@@ -688,6 +809,22 @@ def _check_pairs(pairs: PairedTriangles, height, width, tile_h, tile_w,
     return ptrs, (n_sx, super_h, super_w)
 
 
+def _check_span(pairs: PairedTriangles, sub_rows: int, y_row: int):
+    if y_row >= pairs.records.shape[1]:
+        raise ValueError(f"y_row {y_row} is not a column of records "
+                         f"{tuple(pairs.records.shape)}")
+    if sub_rows <= 0:
+        raise ValueError(f"sub_rows must be positive, got {sub_rows}")
+
+
+def _check_staged(pairs: PairedTriangles):
+    if pairs.records.shape[1] % 4 or pairs.records.data_ptr() % 16:
+        raise ValueError("records: the kernel stages 16-byte pieces of each "
+                         "row; needs a 16-byte aligned base and a row width "
+                         f"that is a multiple of 4, got "
+                         f"{tuple(pairs.records.shape)}")
+
+
 def rasterize_pairs(
     pairs: PairedTriangles,
     height: int,
@@ -703,27 +840,42 @@ def rasterize_pairs(
     """Rasterize an exact pair stream to (depth, triangle-id) buffers.
 
     Returns (depth, tid) with tid = ORIGINAL triangle ids (-1 uncovered),
-    or just depth when ``depth_only``. Tensors on the card go to kernel
-    ``pair_raster``; CPU tensors (or ``backend="torch"``) to
-    ``rasterize_pairs_plain``. ``sub_rows`` / ``y_row`` name the record's
-    packed strip span, which the kernel does not use (results are
-    identical with or without the skip it enables).
+    or just depth when ``depth_only``. ``y_row`` >= 0 names the record
+    column holding the packed strip span that ``build_pairs(
+    ysort_sub_rows=sub_rows)`` appends; the kernel then skips, per warp,
+    the pairs that cannot cover the warp's pixels, as kernel
+    ``pair_raster_fused`` does (``strip_walk_hits``). The kernel splits a
+    crowded tile over up to ``SPLIT_PARTS`` blocks (``split_parts_of``);
+    the only trace of the split in the result is a winning depth of -0.0,
+    which a split tile returns as +0.0 (``rasterize_pairs_split_plain``).
+    Tensors on the card go to kernel ``pair_raster``; CPU tensors (or
+    ``backend="torch"``) to ``rasterize_pairs_plain``, which tests every
+    pair.
     """
-    del sub_rows, y_row
+    _check_span(pairs, sub_rows, y_row)
     if not _use_kernel(pairs.records, backend):
         return rasterize_pairs_plain(pairs, height, width, init_depth,
                                      tile_h, tile_w, depth_only)
     ptrs, geom = _check_pairs(pairs, height, width, tile_h, tile_w, 12,
                               init_depth)
+    _check_staged(pairs)
     dev = pairs.records.device
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tid = None if depth_only else torch.empty(
         (height, width), dtype=torch.int32, device=dev)
+    # Merge keys of the split tiles: 32-bit depth keys, or 64-bit (depth,
+    # pair id) keys; the C function fills them before the raster.
+    n_parts = SPLIT_PARTS
+    keys = None if n_parts == 1 else torch.empty(
+        (height, width), dtype=torch.int32 if depth_only else torch.int64,
+        device=dev)
     with torch.cuda.device(dev):
         code = _build.load().zk_pair_raster(
             *ptrs, depth.data_ptr(),
             None if tid is None else tid.data_ptr(),
-            height, width, tile_h, tile_w, *geom, int(depth_only),
+            None if keys is None else keys.data_ptr(),
+            height, width, tile_h, tile_w, *geom, int(sub_rows), int(y_row),
+            n_parts, SPLIT_MIN_CHUNKS, int(depth_only),
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, "pair_raster")
     rasterize_pairs.launches += 1
@@ -766,22 +918,14 @@ def rasterize_pairs_fused(
     min_w = 12 + fused_extra_width(need_uv, has_combo)
     assert pairs.records.shape[1] >= min_w, (
         pairs.records.shape, need_uv, has_combo)
-    if y_row >= pairs.records.shape[1]:
-        raise ValueError(f"y_row {y_row} is not a column of records "
-                         f"{tuple(pairs.records.shape)}")
-    if sub_rows <= 0:
-        raise ValueError(f"sub_rows must be positive, got {sub_rows}")
+    _check_span(pairs, sub_rows, y_row)
     if not _use_kernel(pairs.records, backend):
         return rasterize_pairs_fused_plain(
             pairs, height, width, init_depth, tile_h, tile_w, texture_size,
             need_uv, has_combo, combo_const)
     ptrs, geom = _check_pairs(pairs, height, width, tile_h, tile_w, min_w,
                               init_depth)
-    if pairs.records.shape[1] % 4 or pairs.records.data_ptr() % 16:
-        raise ValueError("records: the kernel stages 16-byte pieces of each "
-                         "row; needs a 16-byte aligned base and a row width "
-                         f"that is a multiple of 4, got "
-                         f"{tuple(pairs.records.shape)}")
+    _check_staged(pairs)
     dev = pairs.records.device
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tid = torch.empty((height, width), dtype=torch.int32, device=dev)

@@ -210,13 +210,18 @@ def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
 
 
 def _raster_depth(setup, dim, config: EngineConfig):
-    """The shadow map: depth-only pair raster at shadowmap resolution."""
+    """The shadow map: depth-only pair raster at shadowmap resolution,
+    padded to whole shadow tiles (the span of a triangle reaching the map's
+    bottom edge is extended over the padded rows, as in
+    ``_raster_vis_fused``) and cropped back."""
     s_th = config.shadow_tile_h or config.tile_h
     s_tw = config.shadow_tile_w or config.tile_w
     ph = _pad_up(dim, s_th)
     pw = _pad_up(dim, s_tw)
     has_z = 1 if config.raster_zsort else 0
     ysr = config.sub_rows if config.raster_ysort else None
+    if ysr and ph > dim:
+        setup = _span_padded_rows(setup, dim, ph)
     pairs = build_pairs(setup, pw, ph, s_th, s_tw,
                         expand=config.pair_expand_shadow,
                         max_pairs=config.max_pairs_shadow,
