@@ -361,23 +361,20 @@ def bytes_bound(n_bytes: int) -> dict:
 
 
 def compare_raster(kernel_out, plain_out, fused: bool) -> dict:
-    """Depth max-abs <= 1e-6 and the same bits, but for the sign of a
-    zero (kernel pair_raster returns a winning -0.0 on a split tile as
-    +0.0, and the plain version's scatter minimum leaves the sign of equal
-    zeros open); triangle ids equal - both walk pairs in the same order
-    with the same arithmetic (-fmad=false), so the mismatch count must be
-    0; fused planes atol/rtol 1e-5 on covered pixels."""
+    """Depth max-abs <= 1e-6 and the same bits, the sign of a zero
+    included; triangle ids equal - both walk pairs in the same order with
+    the same arithmetic (-fmad=false), so the mismatch count must be 0;
+    fused planes atol/rtol 1e-5 on covered pixels."""
     if not isinstance(kernel_out, tuple):
         kernel_out, plain_out = (kernel_out,), (plain_out,)
     kd, pd = kernel_out[0], plain_out[0]
     err = float((kd - pd).abs().max())
     check(err <= 1e-6, f"depth max-abs {err} > 1e-6")
-    differ = kd.view(torch.int32) != pd.view(torch.int32)
-    zeros = differ & (kd == 0) & (pd == 0)
-    bits = int((differ & ~zeros).sum())
+    bits = int((kd.view(torch.int32) != pd.view(torch.int32)).sum())
     check(bits == 0, f"{bits} depths differ in their bits")
     out = {"max_abs_err": err, "depth_bit_mismatches": bits,
-           "signed_zero_differences": int(zeros.sum())}
+           "negative_zero_depths": int(
+               (pd.view(torch.int32) == -2 ** 31).sum())}
     if len(kernel_out) > 1:
         mism = int((kernel_out[1] != plain_out[1]).sum())
         check(mism == 0, f"{mism} triangle ids differ")
@@ -485,6 +482,152 @@ def pcf_window_blocks(sc, dims, radius, scale) -> dict:
         window_texels_median=float(area[tapping].double().median()))
 
 
+def cmp_pcf(k, p):
+    """Bit for bit: the same arithmetic in the same order (-fmad=false,
+    IEEE divisions); with window origins, equal integers."""
+    (k, ko), (p, po) = k, p
+    err = float((k - p).abs().max())
+    check(torch.equal(k, p), f"max-abs {err}: factors differ")
+    check(torch.equal(ko, po),
+          f"{int((ko != po).any(-1).sum())} window origins differ")
+    return {"max_abs_err": err, "tiles": ko.shape[0] * ko.shape[1],
+            "shadowed_fraction": float((k != 1.0).float().mean())}
+
+
+def pcf_window_cases(run, sm, sc, kw, label) -> dict:
+    """Kernel pcf_window against its plain version, origins included."""
+    return run("pcf_window", label, pcf_window.compute_pcf_pallas, (sm, sc),
+        dict(kw, return_origins=True), cmp_pcf)
+
+
+def pcf_window_extra_cases(rng) -> dict:
+    """The K6 cases beyond the frame's, on maps of uniform random depths
+    (so that a tap read from the wrong texel shows): wild coordinates on a
+    256^2 map (windows of 128 and 256), a 64^2 map (the 128-column pad is
+    wider than the map), a 200^2 map, a tile with no valid pixel, coordinates of +-1e3
+    and +-1e9 map widths, |w| <= 1e-20 and negative w, tiles whose tap box
+    exceeds the shared-memory stage, staged windows that wrap, radius 3
+    (the run-time-radius taps), and 16x32 tiles on a ragged 40x200
+    frame."""
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+
+    def coords(h, w, uv, z=(-0.2, 1.1), wq=(0.5, 1.5)):
+        return np.concatenate(
+            [rng.uniform(*uv, (h, w, 2)), rng.uniform(*z, (h, w, 1)),
+             rng.uniform(*wq, (h, w, 1))], -1)
+
+    base = dict(radius=2, scale=1.5, bias=0.002, tile_h=32, tile_w=128)
+    sm256 = cuda(rng.random((256, 256)))
+    sm1k = cuda(rng.random((1024, 1024)))
+    wild = coords(64, 256, (-0.3, 1.3))
+    valid = rng.random((64, 256)) < 0.8
+    valid[:32, :128] = False  # tile (0, 0) weighs nothing: the plain mean
+    valid_t = torch.from_numpy(valid).cuda()
+    cases = {}
+    for win in (128, 256):
+        cases[f"wild 64x256, map 256, win {win}"] = (
+            sm256, cuda(wild), dict(base, win=win))
+    cases["wild 64x256, map 256, tile (0, 0) with no valid pixel"] = (
+        sm256, cuda(wild), dict(base, win=128, valid=valid_t))
+    cases["map 64 (the 128-column pad is wider than the map)"] = (
+        cuda(rng.random((64, 64))), cuda(coords(64, 256, (-1.5, 2.5))),
+        dict(base, win=256))
+    cases["map 200 (not a power of two: fmod wraps)"] = (
+        cuda(rng.random((200, 200))), cuda(coords(64, 256, (-1.5, 2.5))),
+        dict(base, win=128))
+    for far in (1e3, 1e9):
+        cases[f"map 1024, coordinates of +-{far:g} map widths"] = (
+            sm1k, cuda(coords(64, 256, (-far, far), z=(0.0, 1.0))),
+            dict(base, win=256))
+    odd_w = coords(64, 256, (0.0, 1.0), z=(0.0, 1.0))
+    odd_w[::3, :, 3] = rng.uniform(-1e-20, 1e-20, (22, 256))
+    odd_w[1::3, :, 3] = -rng.uniform(0.5, 1.5, (21, 256))
+    cases["|w| <= 1e-20 and negative w"] = (sm1k, cuda(odd_w),
+                                          dict(base, win=256))
+    # Every pixel of a tile far from its neighbours: boxes of ~256^2
+    # texels, beyond the 8192-texel stage.
+    spread = coords(64, 256, (0.0, 1.0), z=(0.0, 1.0))
+    cases["tap boxes beyond the shared-memory stage"] = (
+        sm1k, cuda(spread), dict(base, win=256))
+    # Smooth coordinates at the map's first texels: small staged boxes
+    # whose windows wrap to the map's last texels (on the 64^2 map, the
+    # window is the map and wraps anywhere).
+    yy, xx = np.meshgrid(np.arange(64), np.arange(256), indexing="ij")
+    smooth = np.stack([1.001 + 0.0002 * xx + 0.00005 * yy,
+                       2.002 + 0.0003 * yy + 0.0001 * xx,
+                       rng.uniform(0.2, 0.8, (64, 256)),
+                       np.ones((64, 256))], -1)
+    cases["map 1024, smooth coordinates at its first texels"] = (
+        sm1k, cuda(smooth), dict(base, win=256))
+    cases["map 64, smooth coordinates"] = (
+        cuda(rng.random((64, 64))), cuda(smooth), dict(base, win=256))
+    cases["radius 3, scale 1.25 (run-time radius)"] = (
+        sm256, cuda(wild), dict(base, radius=3, scale=1.25, win=128))
+    cases["ragged 40x200, tiles 16x32"] = (
+        sm256, cuda(coords(40, 200, (-0.3, 1.3))),
+        dict(base, tile_h=16, tile_w=32, win=128))
+    return cases
+
+
+@contextlib.contextmanager
+def staged_texels(n: int):
+    """Kernel pcf_window with a stage of at most ``n`` texels (0: every
+    tile taps the map directly)."""
+    saved = pcf_window.STAGE_TEXELS
+    pcf_window.STAGE_TEXELS = n
+    try:
+        yield
+    finally:
+        pcf_window.STAGE_TEXELS = saved
+
+
+def pcf_window_stage(inp, radius, scale, tile_h, tile_w) -> dict:
+    """How kernel pcf_window serves the tiles of this frame: the box of
+    clamped window indices each tile's in-range taps reach (the kernel's
+    arithmetic), and the share of tapping tiles whose box fits the
+    8,192-texel stage."""
+    geo = inp.geo
+    offs = pcf_window.tap_offsets(radius, scale)
+    org = inp.origins.repeat_interleave(tile_h, 0).repeat_interleave(
+        tile_w, 1).long()
+    area = None
+    n_ty, n_tx = inp.origins.shape[:2]
+    for f, o in ((inp.fy, org[..., 0]), (inp.fx, org[..., 1])):
+        lo = torch.clamp(torch.floor(f + offs[0]).long() - o, 0, geo.win - 1)
+        hi = torch.clamp(torch.floor(f + offs[-1]).long() - o, 0,
+                         geo.win - 1)
+        big = 1 << 40
+        lo = torch.where(inp.inrange, lo, torch.full_like(lo, big))
+        hi = torch.where(inp.inrange, hi, torch.full_like(hi, -big))
+        lo = lo.reshape(n_ty, tile_h, n_tx, tile_w).amin((1, 3))
+        hi = hi.reshape(n_ty, tile_h, n_tx, tile_w).amax((1, 3))
+        ext = (hi - lo + 1).clamp_min(0)
+        area = ext if area is None else area * ext
+    tapping = area > 0
+    return dict(
+        stage_tiles_share=float(((area <= pcf_window.STAGE_TEXELS)
+                                 & tapping).sum() / tapping.sum().clamp_min(1)),
+        box_texels_median=float(area[tapping].double().median()),
+        tapping_tiles=int(tapping.sum()))
+
+
+def device_launches(fn) -> int:
+    """Device operations (kernels, copies, sets) one call of ``fn`` runs,
+    counted in a torch.profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
 def phase_kernels(captured: dict, frame_launches: dict) -> list:
     """Replay every kernel on the inputs a 1080p frame of its path gave it
     (plus option variants and one small ragged shape), hold it against its
@@ -541,6 +684,22 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
                 f"depth_only={depth_only}, init_depth={cinit is not None}",
                 rc.rasterize_pairs, (crowd, 256, 256, cinit),
                 dict(crowd_kw, depth_only=depth_only), cmp_k1)
+    # Signed zeros on split tiles: the crowded stream's coincident pairs
+    # (triangle 7k + 1 repeats 7k) get depth planes of -0.0 / +0.0 and, for
+    # k odd, +0.0 / -0.0; the earlier pair's zero must win with its sign.
+    tri = crowd.pair_tri.long()
+    k7, r7 = tri // 7, tri % 7
+    zeros = crowd.records.clone()
+    first = (r7 == 0) & (k7 % 2 == 0) | (r7 == 1) & (k7 % 2 == 1)
+    zeros[first, 9:12] = -0.0
+    zeros[(r7 < 2) & ~first, 9:12] = 0.0
+    signed = crowd._replace(records=zeros)
+    for depth_only in (True, False):
+        res = run("pair_raster", "crowded 256x256, coincident pairs of depth "
+                  f"-0.0 / +0.0, depth_only={depth_only}", rc.rasterize_pairs,
+                  (signed, 256, 256), dict(crowd_kw, depth_only=depth_only),
+                  cmp_k1)
+        check(res["negative_zero_depths"] > 0, "no -0.0 depth won")
     call = lambda: rc.rasterize_pairs(  # noqa: E731
         pairs, ph, pw, backend="cuda", **kw)
     times = kernel_times(call, 10)
@@ -781,46 +940,43 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
                      # No PyTorch call shades a culled light list.
                      library_ms=None))
 
-    # ---- K6 pcf_window (one ulp of the final division: <= 6e-8)
-    def cmp_pcf(k, p):
-        err = float((k - p).abs().max())
-        check(err <= 6e-8, f"max-abs {err} > 6e-8")
-        return {"max_abs_err": err}
-
+    # ---- K6 pcf_window: bit for bit, and the same window origins
     (w_sm, w_sc), w_kw = captured["pcf_window"]
-    inp, win = pcf_window.pcf_window_inputs(
-        w_sm, w_sc, w_kw["radius"], w_kw["scale"], w_kw["bias"],
-        w_kw["tile_h"], w_kw["tile_w"], w_kw["win"], w_kw["valid"])
-    wargs = (inp, w_kw["radius"], w_kw["scale"], w_kw["tile_h"],
-             w_kw["tile_w"], win)
-    wkw = {}
-    wmain = run("pcf_window", "frame: pcf_backend=pallas, tiles 64x32",
-                pcf_window.pcf_window_taps, wargs, wkw, cmp_pcf)
-    small_sm = torch.from_numpy(rng.random((256, 256)).astype(
-        np.float32)).cuda()
-    small_sc = torch.from_numpy(np.concatenate(
-        [rng.uniform(-0.3, 1.3, (64, 256, 2)), rng.uniform(-0.2, 1.1, (64, 256, 1)),
-         rng.uniform(0.5, 1.5, (64, 256, 1))], -1).astype(np.float32)).cuda()
-    for win in (128, 256):
-        sinp, swin = pcf_window.pcf_window_inputs(
-            small_sm, small_sc, 2, 1.5, 0.002, 32, 128, win)
-        run("pcf_window", f"wild 64x256, map 256, win {win}",
-            pcf_window.pcf_window_taps, (sinp, 2, 1.5, 32, 128, swin), {},
-            cmp_pcf)
-    call = lambda: pcf_window.pcf_window_taps(  # noqa: E731
-        *wargs, backend="cuda", **wkw)
+    check(w_sc.shape[0] % w_kw["tile_h"] != 0,
+          "the frame's rows are a multiple of its tile: no ragged tile")
+    wmain = pcf_window_cases(
+        run, w_sm, w_sc, w_kw, "frame: pcf_backend=pallas, tiles "
+        f"{w_kw['tile_h']}x{w_kw['tile_w']}, {w_sc.shape[0]} rows")
+    for label, (sm_c, sc_c, kw_c) in pcf_window_extra_cases(rng).items():
+        pcf_window_cases(run, sm_c, sc_c, kw_c, label)
+    call = lambda: pcf_window.compute_pcf_pallas(  # noqa: E731
+        w_sm, w_sc, backend="cuda", **w_kw)
     times = kernel_times(call, 20)
-    plain_ms = cuda_ms(lambda: pcf_window.pcf_window_taps(
-        *wargs, backend="torch", **wkw), 3)
-    radius = wargs[1]
-    n_px = inp.fx.numel()
-    n_bytes = n_px * 20 + inp.sm_padded.numel() * 4 + inp.origins.numel() * 4
+    with staged_texels(0):
+        direct_ms = graph_ms(call, 20)
+    plain_ms = cuda_ms(lambda: pcf_window.compute_pcf_pallas(
+        w_sm, w_sc, backend="torch", **w_kw), 3)
+    radius = w_kw["radius"]
+    n_px = w_sc.shape[0] * w_sc.shape[1]
+    inp = pcf_window.pcf_window_inputs(
+        w_sc, w_sm.shape[-1], radius, w_kw["scale"], w_kw["bias"],
+        w_kw["tile_h"], w_kw["tile_w"], w_kw["win"], w_kw["valid"])
+    n_in = int(inp.inrange.sum())
+    # Each coordinate (16 B) and valid flag (1 B) read once, each factor
+    # written once, the map read once; the taps of in-range pixels.
+    n_bytes = n_px * (16 + 1 + 4) + w_sm.numel() * 4
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_px * (2 * radius + 1) ** 2 * OPS_PER_TAP / PEAK_FP32_PER_S * 1e3
+    t_ops = n_in * (2 * radius + 1) ** 2 * OPS_PER_TAP / PEAK_FP32_PER_S * 1e3
     rows.append(dict(name="pcf_window", route="cuda", **KERNELS["pcf_window"],
                      launches=frame_launches["pcf_window"],
                      max_abs_err=wmain["max_abs_err"], **times,
+                     whole_ms=graph_ms(call, 20),
+                     backend_launches=device_launches(call),
+                     ms_direct_taps=direct_ms,
                      plain_ms=plain_ms,
+                     **pcf_window_stage(inp, radius, w_kw["scale"],
+                                        w_kw["tile_h"], w_kw["tile_w"]),
+                     bytes=n_bytes, in_range_pixels=n_in,
                      bound_ms=max(t_bytes, t_ops),
                      bound_by="bytes" if t_bytes >= t_ops else "operations",
                      # No PyTorch call filters inside per-tile windows.
@@ -1137,8 +1293,8 @@ def phase_engine() -> None:
     """The engine shell, the entry point behind ``python -m
     zeldaengine_tpu_torch.engine``, at its defaults: build the default demo
     world at 1080p, tick twice, check what it presents and that every tick
-    went through K1-K5 once; hold K1 and K2 at the engine's tiles against
-    their plain versions."""
+    went through K1-K5 once; hold K1, K2 and K6 at the engine's tiles
+    against their plain versions."""
     engine = Engine(EngineConfig(width=1920, height=1080, frames_in_flight=1,
                                  present_mode="fifo"))
     ops.reset_kernel_launch_counts()
@@ -1177,10 +1333,23 @@ def phase_engine() -> None:
         rc.split_parts_of(spairs, sh, sw, skw["tile_h"], skw["tile_w"])[3]
         .sum()), ms=graph_ms(lambda: rc.rasterize_pairs(
             spairs, sh, sw, backend="cuda", **skw), 10))
+    # K6 at the engine's tiles (a block of 512 threads) on the third
+    # tick's shadow map and coordinates, with its valid mask.
+    (e_sm, e_sc), e_kw = captured["pcf_taps"]
+    cfg = engine.config
+    kkw = dict(radius=e_kw["radius"], scale=e_kw["scale"],
+               bias=e_kw["bias"], tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+               win=cfg.pcf_window, valid=e_kw["active"])
+    k6 = cmp_pcf(*(pcf_window.compute_pcf_pallas(
+        e_sm, e_sc, backend=b, return_origins=True, **kkw)
+        for b in ("cuda", "torch")))
+    k6.update(tile=(cfg.tile_h, cfg.tile_w), ms=graph_ms(
+        lambda: pcf_window.compute_pcf_pallas(e_sm, e_sc, backend="cuda",
+                                              **kkw), 20))
     emit("engine", ticks=2, frame_ms=engine.stats.frame_ms,
          triangles=engine.stats.triangles, launches=launches,
          mean_level=float(frames[-1].mean()), pair_raster=k1,
-         pair_raster_fused=k2)
+         pair_raster_fused=k2, pcf_window=k6)
 
 
 def main() -> None:

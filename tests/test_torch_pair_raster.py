@@ -181,14 +181,16 @@ def test_strip_walk_skips_only_pairs_that_cover_nothing(height, width,
 def test_split_merge_equals_the_plain_walk(depth_only, with_init):
     """Kernel ``pair_raster``'s split of crowded tiles, in PyTorch
     (``rasterize_pairs_split_plain``): the plain walk over contiguous parts
-    of each tile's sequence, merged by the 64-bit (depth, pair id + 1) key
-    with init keyed as id 0, equals the plain walk over the whole sequence
-    bit for bit, but for the sign of a winning zero: the keys fold -0.0
-    into +0.0. Parts of 4 pairs (the kernel stages 64) put many part
-    boundaries into a small stream; triples of coincident triangles place
-    exact depth ties across them, init_depth equals a candidate's depth
-    at half the pixels, where init must win, and one triangle's depth plane
-    is -0.0, so it wins with a depth of -0.0 wherever it covers."""
+    of each tile's sequence, merged by the 64-bit (depth, order + 1, sign)
+    key with init keyed as order 0, equals the plain walk over the whole
+    sequence bit for bit, the sign of a winning zero included. Parts of 4
+    pairs (the kernel stages 64) put many part boundaries into a small
+    stream; triples of coincident triangles place exact depth ties across
+    them, init_depth equals a candidate's depth at half the pixels, where
+    init must win. Two coincident pairs lying in two parts get depth
+    planes of -0.0 and +0.0: where the first is -0.0 it wins with -0.0
+    across the part boundary, where the first is +0.0 a later -0.0 does
+    not replace it."""
     clip = _random_clip(31, n=240)
     clip[5, 0, 3] = -0.5  # crosses the camera plane: a supertile pair
     clip[60:120] = clip[0:60]
@@ -219,11 +221,24 @@ def test_split_merge_equals_the_plain_walk(depth_only, with_init):
         0, copies, part, "amin")
     hi = torch.full_like(lo, -1).scatter_reduce(0, copies, part, "amax")
     assert bool((hi > lo).any())
-    # A triangle that wins about 64 pixels gets depth -0.0 everywhere.
+    # Two triangles of 0..59 whose first two copies lie in two parts of
+    # one tile, each winning >= 16 pixels: the first gets depth planes
+    # (-0.0, +0.0) on its copies, the second (+0.0, -0.0).
     wins = tp.rasterize_pairs_plain(pairs, H, W, None, 32, 32)[1]
-    counts = torch.bincount(wins[wins >= 0].long())
-    tri = int((counts - 64).abs().argmin())
-    pairs.records[pairs.pair_tri == tri, 9:12] = -0.0
+    counts = torch.bincount(wins[wins >= 0].long(), minlength=240)
+    tri_of = pairs.pair_tri.long()[pids]
+    straddle = set()
+    for c in range(60):
+        a, b = tri_of == c, tri_of == c + 60
+        for t in set(tiles[a].tolist()) & set(tiles[b].tolist()):
+            if int(part[a & (tiles == t)][0]) != int(part[b & (tiles == t)][0]):
+                straddle.add(c)
+    picks = sorted((c for c in straddle if counts[c] >= 16),
+                   key=lambda c: -int(counts[c]))
+    assert len(picks) >= 2, picks
+    for c, signs in zip(picks[:2], ((-0.0, 0.0), (0.0, -0.0))):
+        for copy, z in zip((c, c + 60), signs):
+            pairs.records[pairs.pair_tri == copy, 9:12] = z
     init = None
     if with_init:
         rng = np.random.default_rng(3)
@@ -238,14 +253,19 @@ def test_split_merge_equals_the_plain_walk(depth_only, with_init):
         got, want = (got,), (want,)
     bits = lambda t: t.view(torch.int32).numpy()  # noqa: E731
     minus_zero = bits(torch.tensor(-0.0))
-    assert (bits(want[0]) == minus_zero).sum() >= 32
-    # Every tile is split: a candidate's winning -0.0 comes out as +0.0;
-    # an init_depth of -0.0 wins the tie and stays.
-    keep = (np.zeros((H, W), bool) if init is None
-            else bits(init) == minus_zero)
-    assert keep.sum() >= (16 if with_init else 0)
-    np.testing.assert_array_equal(
-        bits(got[0]), np.where(keep, bits(want[0]), bits(want[0] + 0.0)))
+    # Candidates win with -0.0 and with +0.0; with init_depth, an init of
+    # -0.0 (and of +0.0) wins the tie at about half of those pixels.
+    full_depth, ids = tp.rasterize_pairs_plain(pairs, H, W, init, 32, 32)
+    ids = ids.numpy()
+    # The plain walk's depth is the winner's, depth only or with ids.
+    np.testing.assert_array_equal(bits(want[0]), bits(full_depth))
+    for c, z in zip(picks[:2], (minus_zero, 0)):
+        mine = ids == c
+        assert mine.sum() >= 8
+        assert (bits(want[0])[mine] == z).all()
+    if with_init:
+        assert ((bits(init) == minus_zero) & (ids < 0)).sum() >= 4
+    np.testing.assert_array_equal(bits(got[0]), bits(want[0]))
     if not depth_only:
         np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
         assert (want[1].numpy() >= 0).mean() > 0.05

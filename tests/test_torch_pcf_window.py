@@ -51,26 +51,19 @@ def _case(kind):
 def _near_ties(sm, sc, win, valid, radius=2, scale=1.5):
     """Per pixel: the taps the port reads whose depth lies within
     2^-15 |tap| of z - bias (bias 0 here)."""
-    inp, win = pcf_window.pcf_window_inputs(
-        torch.from_numpy(sm), torch.from_numpy(sc), radius, scale, 0.0,
-        TILE_H, TILE_W, win,
+    inp = pcf_window.pcf_window_inputs(
+        torch.from_numpy(sc), DIM, radius, scale, 0.0, TILE_H, TILE_W, win,
         None if valid is None else torch.from_numpy(valid))
-    org = inp.origins.repeat_interleave(TILE_H, 0).repeat_interleave(
-        TILE_W, 1)
-    flat = inp.sm_padded.reshape(-1)
-    ties = torch.zeros((H, W), dtype=torch.int32)
-    for j in range(-radius, radius + 1):
-        ry = torch.clamp(torch.floor(inp.fy + scale * j).int() - org[..., 0],
-                         0, win - 1)
-        for i in range(-radius, radius + 1):
-            cx = torch.clamp(
-                torch.floor(inp.fx + scale * i).int() - org[..., 1],
-                0, win - 1)
-            tap = flat[((org[..., 0] + ry) * inp.sm_padded.shape[1]
-                        + org[..., 1] + cx).long()]
+    flat = torch.from_numpy(sm).reshape(-1)
+    ties = torch.zeros(inp.fx.shape, dtype=torch.int32)
+    offs = pcf_window.tap_offsets(radius, scale)
+    for oy in offs:
+        for ox in offs:
+            tap = flat[pcf_window.pcf_window_tap_index(inp, oy, ox, TILE_H,
+                                                       TILE_W)]
             near = (tap - inp.zcmp).abs() <= 2.0 ** -15 * tap.abs()
-            ties += (near & (inp.inrange > 0.5)).int()
-    return ties.numpy()
+            ties += (near & inp.inrange).int()
+    return ties[:H, :W].numpy()
 
 
 def _occluded_taps(f):
@@ -88,7 +81,7 @@ def test_plain_matches_jax_kernel(kind):
         torch.from_numpy(sm), torch.from_numpy(sc), tile_h=TILE_H,
         tile_w=TILE_W, win=win,
         valid=None if valid is None else torch.from_numpy(valid))
-    assert pcf_window.pcf_window_taps.launches == 0
+    assert pcf_window.compute_pcf_pallas.launches == 0
     want, got = np.asarray(want), got.numpy()
     ties = _near_ties(sm, sc, win, valid)
     dk = np.abs(_occluded_taps(got) - _occluded_taps(want))
@@ -105,20 +98,150 @@ def test_plain_matches_jax_kernel(kind):
         assert off_exact > 0.1
 
 
-def test_origins_padding_and_wrapper_checks():
-    sm, sc, win, valid = _case("in_window")
-    inp, win = pcf_window.pcf_window_inputs(
-        torch.from_numpy(sm), torch.from_numpy(sc), 2, 1.5, 0.0, TILE_H,
-        TILE_W, 512)
-    assert win == DIM  # clipped to the map
-    # Aligned origins; the padded map wraps (padded index i is (i - pad)
-    # mod DIM, pad 8 rows and 128 columns at radius 2).
+def _jax_wrapper_origins(sm, sc, win, valid, radius=2, scale=1.5):
+    """The origins (wy, wx) of the JAX wrapper's arithmetic
+    (zeldaengine_tpu/ops/pcf_pallas.py, compute_pcf_pallas), in jnp."""
+    h, w = sc.shape[:2]
+    dim = sm.shape[-1]
+    win = min(win, dim)
+    sc = jnp.asarray(sc)
+    wq = sc[..., 3]
+    safe_w = jnp.where(jnp.abs(wq) > 1e-20, wq, 1.0)
+    z = sc[..., 2] / safe_w
+    inrange = ((z > -1.0) & (z < 1.0) & (wq / safe_w > 0.0)).astype(
+        jnp.float32)
+    fx = jnp.mod(sc[..., 0] / safe_w * dim, float(dim))
+    fy = jnp.mod(sc[..., 1] / safe_w * dim, float(dim))
+    weight = inrange
+    if valid is not None:
+        weight = weight * jnp.asarray(valid).astype(jnp.float32)
+
+    def tile_mean(a):
+        t = lambda b: b.reshape(h // TILE_H, TILE_H, w // TILE_W,  # noqa
+                                TILE_W)
+        num = t(a * weight).sum(axis=(1, 3))
+        den = t(weight).sum(axis=(1, 3))
+        return jnp.where(den > 0.5, num / jnp.maximum(den, 1.0),
+                         t(a).mean(axis=(1, 3)))
+
+    geo = pcf_window.window_geometry(dim, radius, scale, win)
+    wy = jnp.clip(jnp.round(tile_mean(fy) - win / 2).astype(jnp.int32)
+                  + geo.pad_y, 0, geo.py_dim - win) // 8 * 8
+    wx = jnp.clip(jnp.round(tile_mean(fx) - win / 2).astype(jnp.int32)
+                  + geo.pad_x, 0, geo.px_dim - win) // 128 * 128
+    return np.stack([np.asarray(wy), np.asarray(wx)], -1)
+
+
+@pytest.mark.parametrize("kind", ["in_window", "out_of_window",
+                                  "all_invalid_tile", "ragged_height"])
+def test_fixed_order_origins_equal_the_jax_wrapper(kind):
+    """The kernel's fixed order of the tile sums (sequential per thread,
+    then halving trees over lanes and warps) gives the origins of the JAX
+    wrapper's arithmetic: with a tile whose pixels all weigh 0 (the plain
+    mean) and with a ragged height, which the JAX side pads with zeros as
+    the frame padded it and the port reads as zeros past the frame (its
+    all-invalid tile's plain mean counts the zero rows)."""
+    sm, sc, win, valid = _case("in_window" if kind == "in_window"
+                               else "out_of_window")
+    if kind == "all_invalid_tile":
+        valid = valid.copy()
+        valid[:, :TILE_W] = False  # both tiles fall back to the plain mean
+    rows = H - 5 if kind == "ragged_height" else H
+    padded = np.zeros_like(sc)
+    padded[:rows] = sc[:rows]
+    want = _jax_wrapper_origins(sm, padded, win, valid)
+    _, got = pcf_window.compute_pcf_pallas(
+        torch.from_numpy(sm), torch.from_numpy(sc[:rows]), tile_h=TILE_H,
+        tile_w=TILE_W, win=win, return_origins=True,
+        valid=None if valid is None else torch.from_numpy(valid[:rows]))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # The sums in PyTorch are the kernel's order, not a plain .sum().
+    a = torch.from_numpy(sc[..., 0].copy())
+    plain = a.reshape(1, TILE_H, 2, TILE_W).sum(dim=(1, 3))
+    ordered = pcf_window.tile_sums_plain(a, TILE_H, TILE_W)
+    np.testing.assert_allclose(ordered.numpy(), plain.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dim", [256, 64])
+def test_origins_padding_and_wrapper_checks(dim):
+    """The taps read the unpadded map where mode="wrap" padding held the
+    same texel (also for a 64-texel map, narrower than the 128-column pad);
+    origins are aligned; the wrapper refuses CPU tensors for the kernel."""
+    rng = np.random.default_rng(dim)
+    sm = rng.random((dim, dim)).astype(np.float32)
+    geo = pcf_window.window_geometry(dim, 2, 1.5, 512)
+    assert geo.win == dim  # clipped to the map
+    assert (geo.pad_y, geo.pad_x) == (8, 128)
+    assert (geo.py_dim, geo.px_dim) == {256: (272, 512), 64: (80, 256)}[dim]
+    padded = np.pad(sm, ((geo.pad_y, geo.py_dim - dim - geo.pad_y),
+                         (geo.pad_x, geo.px_dim - dim - geo.pad_x)),
+                    mode="wrap")
+    for win in (geo.win, 8):
+        wy = torch.arange(0, geo.py_dim - win + 1)
+        wx = torch.arange(0, geo.px_dim - win + 1)
+        rows = pcf_window.wrap_window(wy[:, None], geo.pad_y,
+                                      torch.arange(win), dim)
+        cols = pcf_window.wrap_window(wx[:, None], geo.pad_x,
+                                      torch.arange(win), dim)
+        for y in range(0, wy.shape[0], 8):
+            for x in range(0, wx.shape[0], 128 if win == dim else 37):
+                np.testing.assert_array_equal(
+                    sm[rows[y].numpy()][:, cols[x].numpy()],
+                    padded[y:y + win, x:x + win])
+    # A tap's index: the window clamp, then the same wrap.
+    sc = np.concatenate([rng.uniform(-1.5, 2.5, (H, W, 2)),
+                         rng.uniform(-0.2, 1.2, (H, W, 1)),
+                         np.ones((H, W, 1))], -1).astype(np.float32)
+    inp = pcf_window.pcf_window_inputs(torch.from_numpy(sc), dim, 2, 1.5,
+                                       0.0, TILE_H, TILE_W, 64)
     assert (inp.origins[..., 0] % 8 == 0).all()
     assert (inp.origins[..., 1] % 128 == 0).all()
-    np.testing.assert_array_equal(inp.sm_padded[8:8 + DIM, 128:128 + DIM],
-                                  sm)
-    np.testing.assert_array_equal(inp.sm_padded[:8, :128], sm[-8:, -128:])
-    assert inp.sm_padded.shape == (272, 512)
+    org = inp.origins.repeat_interleave(TILE_H, 0).repeat_interleave(
+        TILE_W, 1).numpy()
+    for off in (-3.0, 0.0, 3.0):
+        idx = pcf_window.pcf_window_tap_index(inp, off, -off, TILE_H,
+                                              TILE_W).numpy()
+        ry = np.clip(np.floor(inp.fy.numpy() + np.float32(off)).astype(
+            np.int64) - org[..., 0], 0, inp.geo.win - 1)
+        cx = np.clip(np.floor(inp.fx.numpy() + np.float32(-off)).astype(
+            np.int64) - org[..., 1], 0, inp.geo.win - 1)
+        padded_map = np.pad(sm, ((8, inp.geo.py_dim - dim - 8),
+                                 (128, inp.geo.px_dim - dim - 128)),
+                            mode="wrap")
+        np.testing.assert_array_equal(
+            sm.reshape(-1)[idx],
+            padded_map[org[..., 0] + ry, org[..., 1] + cx])
     with pytest.raises(RuntimeError, match="card"):
-        pcf_window.pcf_window_taps(inp, 2, 1.5, TILE_H, TILE_W, win,
-                                   backend="cuda")
+        pcf_window.compute_pcf_pallas(torch.from_numpy(sm),
+                                      torch.from_numpy(sc), backend="cuda")
+
+
+def test_kernel_divides_every_25_tap_sum_exactly():
+    """Kernel pcf_window divides a 25-tap sum as q = total * fl(1/25)
+    corrected by one fma step, fma(fma(-q, 25, total), fl(1/25), q). Every
+    sum of 25 taps of 0.1f and 1.0f (any order, f32 adds) gives the
+    correctly rounded quotient, computed here in exact rationals."""
+    from fractions import Fraction
+
+    f32 = np.float32
+
+    def rnd(x):  # nearest f32 to the rational x, ties to even
+        f = f32(float(x))
+        near = [np.nextafter(f, f32(-np.inf)), f, np.nextafter(f, f32(np.inf))]
+        return min(near, key=lambda c: (abs(Fraction(float(c)) - x),
+                                        int(np.array(c).view(np.int32)) & 1))
+
+    sums = {f32(0.0)}
+    for _ in range(25):
+        sums = ({f32(s + f32(0.1)) for s in sums}
+                | {f32(s + f32(1.0)) for s in sums})
+    assert len(sums) == 124
+    r = f32(1.0) / f32(25.0)
+    for t in sums:
+        q = f32(t * r)
+        res = rnd(Fraction(float(t)) - 25 * Fraction(float(q)))
+        got = rnd(Fraction(float(res)) * Fraction(float(r))
+                  + Fraction(float(q)))
+        want = f32(t / f32(25.0))
+        assert rnd(Fraction(float(t)) / 25) == want
+        assert got.view(np.int32) == want.view(np.int32), t

@@ -26,14 +26,16 @@
 //   part keeps ascending pair order, so its local winner is the lowest
 //   pair id among its minimum-depth candidates. A tile whose sequence fits
 //   in one part is stored directly. Split tiles merge exactly with
-//   atomicMin: depth only, on the depth's order-preserving bits; with
-//   ids, on the 64-bit key (depth bits << 32) | (pair id + 1).
-//   merge_parts_kernel then takes the minimum with init_depth keyed as id
-//   0 (it wins ties) and writes depth and triangle id. The keys take -0.0
-//   as +0.0 (d < best treats them as one depth), so a pair's winning depth
-//   of -0.0 comes out of a split tile as +0.0: the one trace of the split
-//   in the result. Nothing is read back to the host, so the launch can be
-//   captured in a CUDA graph.
+//   atomicMin on the 64-bit key (order-preserving bits of the depth with
+//   -0.0 folded into +0.0) << 32 | (order + 1) << 1 | sign bit, where the
+//   order is the pair id with ids and the part depth only (the parts
+//   follow pair order). d < best treats -0.0 and +0.0 as one depth, so
+//   the earlier of two zero candidates wins and keeps its sign; the key
+//   orders them the same way and carries the sign. merge_parts_kernel
+//   then takes the minimum with init_depth keyed as order 0 (it wins
+//   ties) and writes depth and triangle id: a split tile's result equals
+//   the one-block walk's bit for bit. Nothing is read back to the host,
+//   so the launch can be captured in a CUDA graph.
 //
 // Arithmetic is written in the operation order of the plain PyTorch
 // version (ops/rasterize_cuda.py) and the file is compiled with
@@ -76,8 +78,18 @@ __device__ __forceinline__ unsigned ordered(float d) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__device__ __forceinline__ float from_ordered(unsigned k) {
-  return __uint_as_float((k & 0x80000000u) ? (k ^ 0x80000000u) : ~k);
+// The merge key of depth d found at order o (pair id, or part) + 1.
+__device__ __forceinline__ unsigned long long merge_key(float d,
+                                                        unsigned o1) {
+  return ((unsigned long long)ordered(d) << 32) | (o1 << 1) |
+         (__float_as_uint(d) >> 31);
+}
+
+// The depth of a key, its sign restored (only a zero's sign was folded).
+__device__ __forceinline__ float key_depth(unsigned long long k) {
+  const unsigned h = (unsigned)(k >> 32);
+  const float d = __uint_as_float((h & 0x80000000u) ? (h ^ 0x80000000u) : ~h);
+  return (k & 1ull) ? -d : d;
 }
 
 template <int NPP, bool X1, bool DEPTH_ONLY>
@@ -115,13 +127,14 @@ __global__ void __launch_bounds__(zk::kThreads, kMinBlocks<NPP>)
       depth[g] = best[k];
       if (!DEPTH_ONLY) tid[g] = bid[k] >= 0 ? pair_tri[bid[k]] : -1;
     } else if (DEPTH_ONLY) {
-      // best is init_depth where the part has no candidate: the minimum
-      // over the parts is min(init, every candidate).
-      atomicMin(static_cast<unsigned*>(keys) + g, ordered(best[k]));
+      // best is init_depth where the part has no candidate, and init's
+      // key (order 0) is below it at equal depth: the minimum over the
+      // parts and init is init or the first minimum candidate.
+      atomicMin(static_cast<unsigned long long*>(keys) + g,
+                merge_key(best[k], (unsigned)p + 1u));
     } else if (bid[k] >= 0) {
       atomicMin(static_cast<unsigned long long*>(keys) + g,
-                ((unsigned long long)ordered(best[k]) << 32) |
-                    (unsigned)(bid[k] + 1));
+                merge_key(best[k], (unsigned)bid[k] + 1u));
     }
   }
 }
@@ -144,21 +157,13 @@ __global__ void __launch_bounds__(zk::kThreads) merge_parts_kernel(
     const int g =
         (c.ty * tile_h + p / tile_w) * width + c.tx * tile_w + p % tile_w;
     const float init = init_depth ? init_depth[g] : 1.0f;
-    if (DEPTH_ONLY) {
-      const unsigned k = static_cast<const unsigned*>(keys)[g];
-      depth[g] = k < ordered(init) ? from_ordered(k) : init;
-    } else {
-      const unsigned long long k =
-          static_cast<const unsigned long long*>(keys)[g];
-      // init_depth is keyed as id 0: below every candidate at its depth.
-      if (k < ((unsigned long long)ordered(init) << 32)) {
-        depth[g] = from_ordered((unsigned)(k >> 32));
-        tid[g] = pair_tri[(int)(k & 0xffffffffu) - 1];
-      } else {
-        depth[g] = init;
-        tid[g] = -1;
-      }
-    }
+    const unsigned long long k =
+        static_cast<const unsigned long long*>(keys)[g];
+    // init_depth is keyed as order 0: below every candidate at its depth.
+    const bool won = k < ((unsigned long long)ordered(init) << 32);
+    depth[g] = won ? key_depth(k) : init;
+    if (!DEPTH_ONLY)
+      tid[g] = won ? pair_tri[(int)((k & 0xffffffffull) >> 1) - 1] : -1;
   }
 }
 
@@ -170,8 +175,8 @@ __global__ void __launch_bounds__(zk::kThreads) merge_parts_kernel(
 // depth_only. y_row >= 0 names the packed strip span column (strips of
 // sub_rows rows). n_parts > 1 splits each tile's sequence into up to
 // n_parts parts of at least min_chunks 64-pair chunks; keys is then a
-// scratch buffer of height * width words (depth_only: 32-bit, else 64-bit),
-// which this function fills before the raster. Returns cudaGetLastError(),
+// scratch buffer of height * width 64-bit words, which this function fills
+// before the raster. Returns cudaGetLastError(),
 // or cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int zk_pair_raster(
     const void* records, int rec_w, const void* starts, const void* ends,
@@ -189,8 +194,8 @@ extern "C" int zk_pair_raster(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (n_parts > 1) {
-    const cudaError_t e = cudaMemsetAsync(
-        keys, 0xff, (size_t)height * width * (depth_only ? 4 : 8), s);
+    const cudaError_t e =
+        cudaMemsetAsync(keys, 0xff, (size_t)height * width * 8, s);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid(n_tiles * n_parts);

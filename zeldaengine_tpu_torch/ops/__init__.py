@@ -31,8 +31,7 @@ from zeldaengine_tpu_torch.ops.lighting_cuda import (
 )
 from zeldaengine_tpu_torch.ops.pcf_window import (
     compute_pcf_pallas,
-    pcf_window_taps,
-    pcf_window_taps_plain,
+    compute_pcf_pallas_plain,
 )
 from zeldaengine_tpu_torch.ops.pcf_tables import (
     build_pcf_window_table,
@@ -51,7 +50,7 @@ KERNEL_WRAPPERS = {
     "pcf_taps": compute_pcf_vmem,
     "bilinear_tap": sample_base_window,
     "point_lights": point_lighting,
-    "pcf_window": pcf_window_taps,
+    "pcf_window": compute_pcf_pallas,
     "pcf_window_table": build_pcf_window_table,
     "pcf_window2d_table": build_pcf_window2d_table,
 }

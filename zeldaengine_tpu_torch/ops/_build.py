@@ -134,10 +134,11 @@ _SIGNATURES = {
     # tile_cnt, k_max, height, width, block_h, out, stream
     "zk_point_lights": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                         _I, _I, _I, _I, _VP, _VP],
-    # sm_padded, py_dim, px_dim, origins, fx, fy, zcmp, inrange, out,
-    # height, width, tile_h, tile_w, win, radius, scale, stream
-    "zk_pcf_window": [_VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                      _I, _I, _I, _F, _VP],
+    # shadowmap, dim, shadow_coord, valid, out, origins_out, height, width,
+    # tile_h, tile_w, threads, per_thread, win, pad_y, pad_x, py_dim,
+    # px_dim, radius, scale, bias, stage_texels, stream
+    "zk_pcf_window": [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _I, _F, _F, _I, _VP],
     # shadowmap, dim_y, dim_x, lo_x, lo_y, w_y, out, stream
     "zk_pcf_window_table": [_VP, _I, _I, _I, _I, _I, _VP, _VP],
     "zk_pcf_window2d_table": [_VP, _I, _I, _I, _I, _I, _VP, _VP],

@@ -447,21 +447,29 @@ def _plain_visibility(pairs: PairedTriangles, height: int, width: int,
     for s in range(0, n, n_chunk):
         cand, pix = candidates(slice(s, s + n_chunk))
         depth.scatter_reduce_(0, pix, cand, "amin", include_self=True)
-    if not want_id:
+    # The minimum's bits are the winner's but for the sign of a zero (the
+    # scatter minimum leaves it open); a zero takes the winner's sign below.
+    if not want_id and not bool((depth == 0).any()):
         return depth.reshape(height, width), None
     big = torch.iinfo(torch.int64).max
-    pid = torch.full((height * width,), big, dtype=torch.int64, device=dev)
+    key = torch.full((height * width,), big, dtype=torch.int64, device=dev)
     for s in range(0, n, n_chunk):
         sl = slice(s, s + n_chunk)
         cand, pix = candidates(sl)
-        # A candidate wins only strictly below the initial depth.
+        # A candidate wins only strictly below the initial depth; the first
+        # (lowest pair id) at the minimum depth, with its sign bit.
         hit = (cand == depth[pix]) & (cand < init[pix])
         ids = pids[sl][:, None].expand(-1, tp).reshape(-1)
-        pid.scatter_reduce_(
-            0, pix, torch.where(hit, ids, torch.full_like(ids, big)),
+        key.scatter_reduce_(
+            0, pix, torch.where(hit, ids * 2 + torch.signbit(cand),
+                                torch.full_like(ids, big)),
             "amin", include_self=True)
-    pid = torch.where(pid == big, torch.full_like(pid, -1), pid)
-    return depth.reshape(height, width), pid.reshape(height, width)
+    won = key != big
+    zero = torch.where((key & 1) == 1, -0.0, 0.0)
+    depth = torch.where(won, torch.where(depth == 0, zero, depth), init)
+    pid = torch.where(won, key >> 1, torch.full_like(key, -1))
+    return depth.reshape(height, width), (pid.reshape(height, width)
+                                          if want_id else None)
 
 
 def _map_tid(pairs: PairedTriangles, pid):
@@ -516,9 +524,19 @@ def _ordered(depth: torch.Tensor) -> torch.Tensor:
     return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
 
 
-def _from_ordered(key: torch.Tensor) -> torch.Tensor:
-    b = torch.where(key < 0, key ^ 0x7FFFFFFF, key)
-    return b.to(torch.int32).view(torch.float32)
+def _merge_key(depth: torch.Tensor, order1) -> torch.Tensor:
+    """Kernel pair_raster's merge key of ``depth`` found at order + 1
+    (pair id, or part): ordered depth << 32 | order + 1 << 1 | sign bit."""
+    return ((_ordered(depth) << 32) | (order1 << 1)
+            | torch.signbit(depth).to(torch.int64))
+
+
+def _key_depth(key: torch.Tensor) -> torch.Tensor:
+    """The depth of a merge key, the sign of a zero restored."""
+    h = key >> 32
+    b = torch.where(h < 0, h ^ 0x7FFFFFFF, h)
+    d = b.to(torch.int32).view(torch.float32)
+    return torch.where((key & 1) == 1, -d, d)
 
 
 def rasterize_pairs_split_plain(pairs: PairedTriangles, height: int,
@@ -531,14 +549,13 @@ def rasterize_pairs_split_plain(pairs: PairedTriangles, height: int,
     """Kernel ``pair_raster``'s split in PyTorch: the plain walk over each
     part of each tile's sequence (``split_parts_of``), merged as the kernel
     merges it. A tile of one part keeps that part's result. Split tiles take
-    the minimum over their parts of the 64-bit key (depth bits << 32) |
-    (pair id + 1), with ``init_depth`` keyed as id 0; depth only, the
-    minimum of the depth bits and of init. Equal to
-    ``rasterize_pairs_plain`` by construction (lowest pair id among the
-    minimum-depth candidates; init wins ties), which the tests check, bit
-    for bit but for one thing: the keys fold -0.0 into +0.0, so a winning
-    depth of -0.0 on a split tile comes out as +0.0 (the two compare
-    equal, and ``d < best`` treats them as one depth)."""
+    the minimum over their parts of the 64-bit key (depth bits, -0.0
+    folded into +0.0) << 32 | (pair id + 1) << 1 | sign bit, with
+    ``init_depth`` keyed as order 0; depth only, the part + 1 takes the
+    pair id's place (parts follow pair order). Equal to
+    ``rasterize_pairs_plain`` bit for bit by construction (the first
+    minimum-depth candidate in pair order, its sign included, as ``d <
+    best`` keeps it; init wins ties), which the tests check."""
     dev = pairs.records.device
     tiles, pids, part, split = split_parts_of(
         pairs, height, width, tile_h, tile_w, split_parts, split_min_chunks,
@@ -560,18 +577,19 @@ def rasterize_pairs_split_plain(pairs: PairedTriangles, height: int,
         if first is None:
             first = (depth_p, pid_p)
         if depth_only:
-            key = torch.minimum(key, _ordered(depth_p))
+            # depth_p is init where the part has no candidate.
+            key = torch.minimum(key, _merge_key(depth_p, p + 1))
         else:
             key = torch.minimum(key, torch.where(
-                pid_p >= 0, (_ordered(depth_p) << 32) | (pid_p + 1),
+                pid_p >= 0, _merge_key(depth_p, pid_p + 1),
                 torch.full_like(key, big)))
-    if depth_only:
-        merged = torch.where(key < _ordered(init), _from_ordered(key), init)
-        return torch.where(split_px, merged, first[0])
     wins = key < (_ordered(init) << 32)
-    depth = torch.where(wins, _from_ordered(key >> 32), init)
-    pid = torch.where(wins, key & 0xFFFFFFFF, torch.full_like(key, 0)) - 1
-    depth = torch.where(split_px, depth, first[0])
+    depth = torch.where(split_px & wins, _key_depth(key),
+                        torch.where(split_px, init, first[0]))
+    if depth_only:
+        return depth
+    pid = torch.where(wins, (key & 0xFFFFFFFF) >> 1,
+                      torch.full_like(key, 0)) - 1
     pid = torch.where(split_px, pid, first[1])
     return depth, _map_tid(pairs, pid)
 
@@ -845,9 +863,8 @@ def rasterize_pairs(
     ysort_sub_rows=sub_rows)`` appends; the kernel then skips, per warp,
     the pairs that cannot cover the warp's pixels, as kernel
     ``pair_raster_fused`` does (``strip_walk_hits``). The kernel splits a
-    crowded tile over up to ``SPLIT_PARTS`` blocks (``split_parts_of``);
-    the only trace of the split in the result is a winning depth of -0.0,
-    which a split tile returns as +0.0 (``rasterize_pairs_split_plain``).
+    crowded tile over up to ``SPLIT_PARTS`` blocks (``split_parts_of``)
+    and merges them exactly (``rasterize_pairs_split_plain``).
     Tensors on the card go to kernel ``pair_raster``; CPU tensors (or
     ``backend="torch"``) to ``rasterize_pairs_plain``, which tests every
     pair.
@@ -863,12 +880,11 @@ def rasterize_pairs(
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tid = None if depth_only else torch.empty(
         (height, width), dtype=torch.int32, device=dev)
-    # Merge keys of the split tiles: 32-bit depth keys, or 64-bit (depth,
-    # pair id) keys; the C function fills them before the raster.
+    # 64-bit merge keys of the split tiles; the C function fills them
+    # before the raster.
     n_parts = SPLIT_PARTS
     keys = None if n_parts == 1 else torch.empty(
-        (height, width), dtype=torch.int32 if depth_only else torch.int64,
-        device=dev)
+        (height, width), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         code = _build.load().zk_pair_raster(
             *ptrs, depth.data_ptr(),

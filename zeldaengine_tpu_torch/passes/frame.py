@@ -277,17 +277,12 @@ def _shadow_factor(shadowmap, world_pos, view, config: EngineConfig,
         return compute_pcf_packed(shadowmap, sc, **kw,
                                   batch_rows=backend == "packed_b")
     if backend == "pallas" and sc.ndim == 3:
-        h, w = sc.shape[:2]
-        ph = _pad_up(h, config.tile_h)
-        pw = _pad_up(w, max(config.tile_w, 128))
-        if ph != h or pw != w:
-            sc = torch.nn.functional.pad(sc, (0, 0, 0, pw - w, 0, ph - h))
-            if valid is not None:
-                valid = torch.nn.functional.pad(valid, (0, pw - w, 0, ph - h))
-        out = compute_pcf_pallas(
-            shadowmap, sc, **kw, tile_h=config.tile_h, tile_w=config.tile_w,
-            win=config.pcf_window, valid=valid, backend=config.raster)
-        return out[:h, :w]
+        # One kernel launch from the coordinate to the factor; the last
+        # tiles read zero coordinates past the frame, as padding would.
+        return compute_pcf_pallas(
+            shadowmap, sc.contiguous(), **kw, tile_h=config.tile_h,
+            tile_w=config.tile_w, win=config.pcf_window, valid=valid,
+            backend=config.raster)
     return compute_pcf(shadowmap, sc, **kw)
 
 
