@@ -7,17 +7,21 @@ port's paths through ``render_frame``: the 1920x1080 deferred demo frame of
 bench config 3 at its defaults (10000 grass instances per species, 65
 rocks, 16 point lights culled to 40x128 blocks and shaded by the
 point-light kernel, tiles 64x32); the same frame with 512 point lights;
-and one frame through each opt-in PCF backend that has a kernel. Every
-kernel is replayed on the inputs a frame gave it and held against its
-plain PyTorch version on the card, and timed as device time (its calls
-replayed from a CUDA graph, ``ms``) and as events around eager calls
-(``eager_ms``, which includes the host's cost per call where that is the
-larger); 256x256 frames rendered through the
-kernels are held against the same frames rendered through the plain
-versions, and the engine shell presents two 1080p frames. Each phase
-prints one JSON line; the last line is ``{"ok": true, "device": {...}}``.
-Any failure raises: the script exits non-zero and prints no result. It
-needs a CUDA device, nvcc, and nothing else beyond PyTorch and NumPy.
+one frame through each opt-in PCF backend that has a kernel; bench config
+3t (the same frame with per-slot PBR textures and the variable-lod cube
+reflection); bench config 1 (a forward-shaded sphere at 512x512); and the
+committed golden scene in debug views 0, 1, 4, 8 and 9, held against
+tests/golden/*.png, and its view 0 once more with both passes' point lights
+through the point-light kernel. Every kernel is replayed on the inputs a frame
+gave it and held against its plain PyTorch version on the card, and timed as
+device time (its calls replayed from a CUDA graph, ``ms``) and as events around
+eager calls (``eager_ms``, which includes the host's cost per call where that
+is the larger); 256x256 frames rendered through the kernels are held against
+the same frames rendered through the plain versions, and the engine shell
+presents two 1080p frames. Each phase prints one JSON line; the last line is
+``{"ok": true, "device": {...}}``. Any failure raises: the script exits
+non-zero and prints no result. It needs a CUDA device, nvcc, PyTorch, NumPy and
+Pillow (the textured scene's and the goldens' PNGs).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import os
 import shutil
 import statistics
@@ -42,6 +47,7 @@ import torch  # noqa: E402
 from zeldaengine_tpu_torch import EngineConfig, TEST_CONFIG  # noqa: E402
 from zeldaengine_tpu_torch import ops  # noqa: E402
 from zeldaengine_tpu_torch.engine import Engine  # noqa: E402
+from zeldaengine_tpu_torch.math import transforms  # noqa: E402
 from zeldaengine_tpu_torch.ops import _build  # noqa: E402
 from zeldaengine_tpu_torch.ops import lighting, lighting_cuda  # noqa: E402
 from zeldaengine_tpu_torch.ops import pcf_cuda, rasterize as rast  # noqa: E402
@@ -50,7 +56,11 @@ from zeldaengine_tpu_torch.ops import rasterize_cuda as rc  # noqa: E402
 from zeldaengine_tpu_torch.ops import shadow, window_tap  # noqa: E402
 from zeldaengine_tpu_torch.passes import build_view_state, render_frame  # noqa: E402
 from zeldaengine_tpu_torch.passes import frame as frame_graph  # noqa: E402
-from zeldaengine_tpu_torch.scene import LightDesc, build_demo_scene  # noqa: E402
+from zeldaengine_tpu_torch.scene import (  # noqa: E402
+    CameraDesc, LightDesc, SceneBuilder, World, build_demo_scene,
+    build_textured_demo_scene, make_sphere)
+from zeldaengine_tpu_torch.scene.demo import build_golden_scene  # noqa: E402
+from zeldaengine_tpu_torch.utils.image import read_png  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the roofline the
 # kernels' bounds are stated against.
@@ -84,8 +94,22 @@ FRAME_CALLS = {
 }
 # Failures found by a phase whose kernels phase kernels replays first.
 FAILURES = []
-MAIN_PATH = ("pair_raster", "pair_raster_fused", "pcf_taps",
-             "bilinear_tap", "point_lights")
+# Launches of each kernel in one frame of each path. Kernel fma computes
+# the vertex transforms' multiply-adds (2 for positions and normals, 2 for
+# each clip transform) and triangle_setup's (3 a pass, 4 more for the
+# shadow pass's depth bias). Config 3's deferred frame: 2 + 2 + 2 + 7 + 3.
+MAIN_PATH = {"pair_raster": 1, "pair_raster_fused": 1, "pcf_taps": 1,
+             "bilinear_tap": 1, "point_lights": 1, "fma": 16}
+# The config-1 forward frame (no shadow map, no skydome, no point light:
+# the forward raster and its PCF) and the golden scene's view 0 (a
+# deferred and a forward pass; two point-light slots, below
+# point_kernel_min: the plain loop, unless the kernel is asked for).
+FORWARD_PATH = {"pair_raster_fused": 1, "pcf_taps": 1, "fma": 7}
+GOLDEN_PATH = {"pair_raster": 1, "pair_raster_fused": 2, "pcf_taps": 2,
+               "bilinear_tap": 1, "fma": 19}
+GOLDEN_VIEWS = {"final": 0, "basecolor": 1, "normals": 4, "shadow": 8,
+                "gbuffervis": 9}
+REPO = os.path.dirname(os.path.abspath(__file__))
 # The kernel each opt-in PCF backend adds to the frame (K3 then runs not).
 PCF_BACKEND_KERNEL = {
     "pallas": "pcf_window",
@@ -119,6 +143,12 @@ KERNELS = {
     "pcf_window2d_table": dict(
         source="zeldaengine_tpu_torch/csrc/pcf_window_table.cu",
         replaces="zeldaengine_tpu/ops/pcf_pallas.py:311"),
+    # No pallas_call: XLA fuses these multiply-adds in the reference's
+    # compiled triangle_setup (the depth-bias slope chain at this line)
+    # and vertex transforms.
+    "fma": dict(
+        source="zeldaengine_tpu_torch/csrc/fma.cu",
+        replaces="zeldaengine_tpu/ops/rasterize.py:127"),
 }
 
 
@@ -225,9 +255,10 @@ def phase_build() -> None:
 def recorded_calls(calls: dict):
     """While active, every call a frame makes to a kernel's wrapper or to
     ``build_pairs`` is noted in ``calls`` (references, not copies) and
-    passed on unchanged: ``calls[kernel] = (args, kwargs)`` without the
-    ``backend`` keyword, ``calls["build_pairs"] = [(setup, pairs), ...]``
-    in call order (shadow pass first, GBuffer second)."""
+    passed on unchanged: ``calls[kernel] = (args, kwargs)`` of the last
+    call without the ``backend`` keyword, ``calls["all:" + kernel]`` every
+    call in order, ``calls["build_pairs"] = [(setup, pairs), ...]`` in call
+    order (shadow pass first, GBuffer second)."""
     saved = []
 
     def shim(module, name, key):
@@ -239,18 +270,23 @@ def recorded_calls(calls: dict):
             if key == "build_pairs":
                 calls.setdefault(key, []).append((args[0], out))
             else:
-                calls[key] = (args, {k: v for k, v in kw.items()
-                                     if k != "backend"})
+                noted = (args, {k: v for k, v in kw.items()
+                                if k != "backend"})
+                calls[key] = noted
+                calls.setdefault("all:" + key, []).append(noted)
             return out
         setattr(module, name, call)
 
     shim(frame_graph, "build_pairs", "build_pairs")
     for key, (module, name) in FRAME_CALLS.items():
         shim(module, name, key)
+    # fma_f32 is called by name from both modules.
+    for module in (transforms, rast):
+        shim(module, "fma_f32", "fma")
     try:
         yield calls
     finally:
-        for module, name, fn in saved:
+        for module, name, fn in reversed(saved):
             setattr(module, name, fn)
 
 
@@ -384,8 +420,7 @@ def compare_raster(kernel_out, plain_out, fused: bool) -> dict:
         k, p = kernel_out[2][:, cov], plain_out[2][:, cov]
         perr = (k - p).abs()
         bad = int((perr > 1e-5 + 1e-5 * p.abs()).sum())
-        check(bad == 0, f"{bad} plane values beyond atol/rtol 1e-5 "
-                        f"(max {float(perr.max())})")
+        check(bad == 0, f"{bad} plane values beyond atol/rtol 1e-5")
         unc = (kernel_out[2][:, ~cov] - plain_out[2][:, ~cov]).abs()
         check(unc.numel() == 0 or float(unc.max()) == 0.0,
               "uncovered planes differ")
@@ -628,11 +663,15 @@ def device_launches(fn) -> int:
                if e.device_type == DeviceType.CUDA)
 
 
-def phase_kernels(captured: dict, frame_launches: dict) -> list:
+def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
+                  path_launches: dict) -> list:
     """Replay every kernel on the inputs a 1080p frame of its path gave it
     (plus option variants and one small ragged shape), hold it against its
     plain version on the card, time both. ``frame_launches[name]`` is the
-    kernel's launch count in its path's run."""
+    kernel's launch count in its path's run. ``paths[path][name]`` are the
+    arguments the later slices' frames (config 3t, config 1, the golden
+    scene) gave each kernel, replayed bit for bit too;
+    ``path_launches[path]`` the launches per frame of each path."""
     rows = []
     checks = {}
 
@@ -643,6 +682,22 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
         res = compare(k, p)
         checks.setdefault(name, []).append({"case": label, **res})
         return res
+
+    def replay(name, wrapper, compare, cases):
+        """The frames of the paths: (path, what) each."""
+        for path, what in cases:
+            check(name in paths[path], f"{path}: {name} was not called")
+            args, kw = paths[path][name]
+            run(name, f"{path}: {what}", wrapper, args, kw, compare)
+
+    def cmp_bits(k, p):
+        k, p = (k[0], p[0]) if isinstance(k, tuple) else (k, p)
+        err = float((k - p).abs().max())
+        check(torch.equal(k, p), f"not bit for bit (max-abs {err})")
+        return {"max_abs_err": err}
+
+    def by_path(name):
+        return {path: c.get(name, 0) for path, c in path_launches.items()}
 
     # ---- K1 pair_raster
     (pairs, ph, pw), kw = captured["pair_raster"]
@@ -700,6 +755,8 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
                   (signed, 256, 256), dict(crowd_kw, depth_only=depth_only),
                   cmp_k1)
         check(res["negative_zero_depths"] > 0, "no -0.0 depth won")
+    replay("pair_raster", rc.rasterize_pairs, cmp_k1,
+           [("frame3t", "shadow map"), ("golden", "shadow map, 8x128 tiles")])
     call = lambda: rc.rasterize_pairs(  # noqa: E731
         pairs, ph, pw, backend="cuda", **kw)
     times = kernel_times(call, 10)
@@ -715,6 +772,7 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     rows.append(dict(name="pair_raster", route="cuda",
                      **KERNELS["pair_raster"],
                      launches=frame_launches["pair_raster"],
+                     launches_per_frame_by_path=by_path("pair_raster"),
                      max_abs_err=main["max_abs_err"], **times,
                      plain_ms=plain_ms,
                      ms_one_block_a_tile=one_ms, crowded_ms=crowd_ms,
@@ -735,7 +793,8 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     finit = torch.from_numpy(np.random.default_rng(2).uniform(
         0.9, 1.0, (fh, fw)).astype(np.float32)).cuda()
     run("pair_raster_fused", "frame: GBuffer, strip span, init_depth",
-        rc.rasterize_pairs_fused, (fpairs, fh, fw, finit), fkw, cmp_fused)
+        rc.rasterize_pairs_fused, (fpairs, fh, fw),
+        dict(fkw, init_depth=finit), cmp_fused)
     for need_uv in (True, False):
         for has_combo in (True, False):
             extra_w = rc.fused_extra_width(need_uv, has_combo)
@@ -760,6 +819,14 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
         rc.rasterize_pairs_fused, (wide, 72, 128),
         dict(tile_h=24, tile_w=64, sub_rows=8, y_row=12 + extra_w + 1,
              texture_size=64), cmp_fused)
+    for path in ("forward", "golden"):
+        check(paths[path]["pair_raster_fused"][1].get("init_depth")
+              is not None, f"{path}: the forward raster has no init_depth")
+    replay("pair_raster_fused", rc.rasterize_pairs_fused, cmp_fused,
+           [("frame3t", "GBuffer, textured"),
+            ("forward", "forward sphere, init_depth = far plane, 32x128 "
+             "tiles"),
+            ("golden", "forward sphere, init_depth = GBuffer depth")])
     call = lambda: rc.rasterize_pairs_fused(  # noqa: E731
         fpairs, fh, fw, backend="cuda", **fkw)
     times = kernel_times(call, 10)
@@ -768,6 +835,7 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     rows.append(dict(name="pair_raster_fused", route="cuda",
                      **KERNELS["pair_raster_fused"],
                      launches=frame_launches["pair_raster_fused"],
+                     launches_per_frame_by_path=by_path("pair_raster_fused"),
                      max_abs_err=fmain["max_abs_err"], **times,
                      plain_ms=plain_ms,
                      **raster_bound(fpairs, setup_gb, fh, fw, fkw,
@@ -834,6 +902,10 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
           "an out-of-range block does not read 1.0")
     run("pcf_taps", f"{2 * bh}x{2 * bw} with an all-out-of-range {bw}x{bh} "
         "block", pcf_cuda.compute_pcf_vmem, (sm, edge), pkw, cmp_small)
+    replay("pcf_taps", pcf_cuda.compute_pcf_vmem, cmp_bits,
+           [("frame3t", "deferred resolve"),
+            ("forward", "forward pixels, shadow map of ones"),
+            ("golden", "forward pixels")])
     call = lambda: pcf_cuda.compute_pcf_vmem(  # noqa: E731
         sm, sc, backend="cuda", **pkw)
     times = kernel_times(call, 20)
@@ -842,6 +914,7 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     n_px = sc.shape[0] * sc.shape[1]
     rows.append(dict(name="pcf_taps", route="cuda", **KERNELS["pcf_taps"],
                      launches=frame_launches["pcf_taps"],
+                     launches_per_frame_by_path=by_path("pcf_taps"),
                      max_abs_err=pmain["max_abs_err"], **times,
                      plain_ms=plain_ms,
                      **pcf_window_blocks(sc, sm.shape, pkw["radius"],
@@ -865,6 +938,8 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     run("bilinear_tap", "ragged 37x53, no mask",
         window_tap.sample_base_window, (planes_s, uv_s, None, 64), {},
         cmp_small)
+    replay("bilinear_tap", window_tap.sample_base_window, cmp_bits,
+           [("frame3t", "skydome"), ("golden", "skydome")])
     call = lambda: window_tap.sample_base_window(  # noqa: E731
         *targs, backend="cuda")
     times = kernel_times(call, 20)
@@ -875,6 +950,7 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     rows.append(dict(name="bilinear_tap", route="cuda",
                      **KERNELS["bilinear_tap"],
                      launches=frame_launches["bilinear_tap"],
+                     launches_per_frame_by_path=by_path("bilinear_tap"),
                      max_abs_err=tmain["max_abs_err"], **times,
                      plain_ms=plain_ms,
                      **bytes_bound(n_px * (8 + 1 + 4 * planes.shape[0])
@@ -906,6 +982,15 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     run("point_lights", "ragged 1000x1920", lighting_cuda.point_lighting,
         (*[c.contiguous() for c in cut], largs[7], largs[8][:n_by].contiguous(),
          largs[9][:n_by].contiguous()), lkw, cmp_lights)
+    replay("point_lights", lighting_cuda.point_lighting, cmp_bits,
+           [("frame3t", "16 lights, textured GBuffer")])
+    # The golden scene with the kernel asked for: the deferred pass's call,
+    # then the forward sphere's, its lists culled against its own surface.
+    g_calls = paths["golden_points"]["all:point_lights"]
+    check(len(g_calls) == 2, f"golden: K5 called {len(g_calls)} times")
+    for (gargs, gkw), what in zip(g_calls, ("deferred", "forward")):
+        run("point_lights", f"golden_points: {what} pixels",
+            lighting_cuda.point_lighting, gargs, gkw, cmp_bits)
     call = lambda: lighting_cuda.point_lighting(  # noqa: E731
         *largs, backend="cuda", **lkw)
     times = kernel_times(call, 20)
@@ -930,6 +1015,7 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     rows.append(dict(name="point_lights", route="cuda",
                      **KERNELS["point_lights"],
                      launches=frame_launches["point_lights"],
+                     launches_per_frame_by_path=by_path("point_lights"),
                      max_abs_err=lmain["max_abs_err"], **times,
                      plain_ms=plain_ms,
                      bound_ms=max(t_bytes, t_ops),
@@ -969,6 +1055,7 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
     t_ops = n_in * (2 * radius + 1) ** 2 * OPS_PER_TAP / PEAK_FP32_PER_S * 1e3
     rows.append(dict(name="pcf_window", route="cuda", **KERNELS["pcf_window"],
                      launches=frame_launches["pcf_window"],
+                     launches_per_frame_by_path=by_path("pcf_window"),
                      max_abs_err=wmain["max_abs_err"], **times,
                      whole_ms=graph_ms(call, 20),
                      backend_launches=device_launches(call),
@@ -1036,8 +1123,88 @@ def phase_kernels(captured: dict, frame_launches: dict) -> list:
                 per_group_design_eager_ms=cuda_ms(per_group, 20))
         rows.append(dict(name=name, route="cuda", **KERNELS[name],
                          launches=frame_launches[name],
+                         launches_per_frame_by_path=by_path(name),
                          max_abs_err=tmain["max_abs_err"], **timing,
                          **bytes_bound(sm_t.numel() * 4 + out.numel() * 4)))
+    # ---- fma: one rounding; bit for bit with its plain version (compared
+    # as bits, so a zero's sign counts) on every call of each path's frame.
+    def cmp_fma(k, p):
+        err = float((k - p).abs().max())
+        check(torch.equal(k.view(torch.int32), p.view(torch.int32)),
+              f"not bit for bit (max-abs {err})")
+        return {"max_abs_err": err}
+
+    fma = transforms.fma_f32
+    f_calls = paths["frame"]["all:fma"]
+    check(len(f_calls) == MAIN_PATH["fma"],
+          f"frame: fma called {len(f_calls)} times")
+    for path, noted in paths.items():
+        calls = noted["all:fma"]
+        errs = [cmp_fma(fma(*a, backend="cuda", **kw),
+                        fma(*a, backend="torch", **kw))["max_abs_err"]
+                for a, kw in calls]
+        checks.setdefault("fma", []).append(
+            {"case": f"{path}: all {len(calls)} calls of a frame",
+             "max_abs_err": max(errs)})
+    # Double rounding (the first value: an fp64 sum on an fp32 midpoint),
+    # cancellation, subnormal results, broadcast operands, scalars and
+    # strided views.
+    f32 = np.float32
+    va = [f32(1 + 2.0 ** -23)]
+    vb = [f32(2.0 ** -24 * (1 - 2.0 ** -23))]
+    vc = [f32(1 + 2.0 ** -23)]
+    for scale in (1.0, 1e-4, 1e4, 1e-20, 1e17):
+        va += list(rng.standard_normal(4000).astype(f32))
+        vb += list((rng.standard_normal(4000) * scale).astype(f32))
+        vc += list((rng.standard_normal(4000) * scale * scale).astype(f32))
+    va, vb, vc = (torch.from_numpy(np.array(x, f32)).cuda()
+                  for x in (va, vb, vc))
+    vc[1::7] = -(va[1::7].double() * vb[1::7].double()).float()
+    run("fma", "20,001 values: double rounding, cancellation, subnormal "
+        "results", fma, (va, vb, vc), {}, cmp_fma)
+    grid = va[:4000].reshape(40, 100)
+    run("fma", "broadcast (40, 1) x (100,) + scalar", fma,
+        (grid[:, :1], vb[:100], 0.1), {}, cmp_fma)
+    run("fma", "strided views, scalar factor", fma,
+        (grid[:, ::3], 7.5, grid.t()[::3].t()), {}, cmp_fma)
+
+    def out_numel(args):
+        return torch.broadcast_shapes(*(a.shape for a in args
+                                        if isinstance(a, torch.Tensor)))
+
+    big_args, big_kw = max(f_calls, key=lambda c: math.prod(out_numel(c[0])))
+    call = lambda: fma(*big_args, backend="cuda", **big_kw)  # noqa: E731
+    times = kernel_times(call, 20)
+    plain_ms = cuda_ms(lambda: fma(*big_args, backend="torch", **big_kw), 5)
+    n_out = math.prod(out_numel(big_args))
+    n_bytes = 4 * (n_out + sum(a.numel() for a in big_args
+                               if isinstance(a, torch.Tensor)))
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * n_out / PEAK_FP32_PER_S * 1e3
+    library = dict(library_ms=None)
+    if all(isinstance(a, torch.Tensor) for a in big_args):
+        # addcmul is the same function up to its rounding: whether it
+        # fuses the multiply-add is the library's choice.
+        fa, fb, fc = big_args
+        lib = lambda: torch.addcmul(fc, fa, fb)  # noqa: E731
+        library = dict(library_ms=graph_ms(lib, 20),
+                       library_bitwise_equal=torch.equal(
+                           lib().view(torch.int32), call().view(torch.int32)))
+    frame_calls = lambda b: [fma(*a, backend=b, **kw)  # noqa: E731
+                             for a, kw in f_calls]
+    rows.append(dict(name="fma", route="cuda", **KERNELS["fma"],
+                     launches=frame_launches["fma"],
+                     launches_per_frame_by_path=by_path("fma"),
+                     max_abs_err=max(c["max_abs_err"]
+                                     for c in checks["fma"]),
+                     **times, plain_ms=plain_ms,
+                     shape=list(out_numel(big_args)),
+                     frame_calls_ms=graph_ms(lambda: frame_calls("cuda"), 5),
+                     frame_calls_plain_ms=cuda_ms(
+                         lambda: frame_calls("torch"), 3),
+                     bytes=n_bytes, bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     **library))
     emit("kernels", checks=checks)
     return rows
 
@@ -1103,6 +1270,176 @@ def check_image(image, aux) -> tuple:
     return covered, sky, sf
 
 
+def config1() -> EngineConfig:
+    """bench.py's config 1 (bench.py:213-230): forward PBR at 512x512."""
+    return EngineConfig(width=512, height=512, shadowmap_dim=256,
+                        enable_shadow=False, enable_skydome=False,
+                        texture_size=128, cubemap_size=64,
+                        background_size=128, max_point_lights=8)
+
+
+def forward_scene(config, device="cuda"):
+    """Config 1's scene: one forward sphere, no skydome (bench.py's
+    procedural stand-in for Content/Models/sphere.obj, which the repository
+    does not hold), the camera and moon of bench.py's make_world."""
+    b = SceneBuilder(config)
+    b.enable_skydome = False
+    b.add_object(make_sphere(1.0, rings=48, sectors=96), b.add_material({}),
+                 deferred=False)
+    scene, meta = b.build(device)
+    w = World()
+    w.main_camera = CameraDesc(position=np.float32([0.0, -3.0, 1.0]),
+                               lookat=np.float32([0.0, 0.0, 0.0]),
+                               z_far=60.0)
+    moon = np.float32([20.0, 0.0, 20.0])
+    w.directional_lights = [
+        LightDesc(position=moon, type=0,
+                  color=np.float32([1.0, 0.95, 0.85]), intensity=3.0,
+                  direction=moon / np.linalg.norm(moon))]
+    return scene, meta, w
+
+
+def phase_frame3t():
+    """Bench config 3t: the config-3 frame of the demo scene with per-slot
+    PBR textures (varying channels through the mip-pair atlas fetch) and
+    the variable-lod cube reflection (the half-resolution mip-pair cube):
+    2 warm-up + 6 timed 1080p frames, K1-K5 once per frame."""
+    config = config3()  # bench.py:410-428: config 3's frame
+    t0 = time.time()
+    scene, meta, world = build_textured_demo_scene(config, grass=10000,
+                                                   rocks=65)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    check(meta.tex_channels == (0, 1, 2, 3, 4, 9, 10, 11),
+          f"tex_channels {meta.tex_channels}")
+    check(scene.cube_const is None and scene.cube_pair1 is not None,
+          "config 3t does not take the variable-lod reflection")
+    warm, timed = 2, 6
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms, host_ms, image, aux, launches = timed_frames(
+        scene, meta, world, config, warm, timed)
+    check_launches(launches, {k: v * (warm + timed)
+                              for k, v in MAIN_PATH.items()}, "frame3t")
+    covered, sky, sf = check_image(image, aux)
+    captured, _, _ = noted_frame(scene, meta, world, config)
+    busy = phase_profile(scene, meta, world, config, phase="profile_frame3t")
+    emit("frame3t", frame_ms=statistics.median(frame_ms),
+         frame_ms_all=frame_ms, host_frame_ms=statistics.median(host_ms),
+         device_busy_ms=busy["device_busy_ms"],
+         device_launches=busy["device_launches"],
+         frames=timed, warmup=warm, triangles=meta.num_triangles,
+         instances=meta.num_instances, tex_channels=list(meta.tex_channels),
+         combined_atlas=list(scene.combined_atlas.shape),
+         cube_pair1=list(scene.cube_pair1.shape),
+         light_drops=int(aux["light_drops"]),
+         live_pairs={k: int(v) for k, v in aux["live_pairs"].items()},
+         pair_overflow=int(aux["pair_overflow"]),
+         covered_fraction=covered, sky_fraction=sky,
+         image_std=float(image.std()),
+         scene_build_s=round(build_s, 2),
+         peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
+         launches=launches)
+    return captured, launches, warm + timed
+
+
+def phase_forward():
+    """Bench config 1: a forward-shaded sphere at 512x512, no shadow map,
+    no skydome, no point light: 2 warm-up + 8 timed frames through K2 (with
+    the far plane as its initial depth) and K3 once per frame."""
+    config = config1()
+    t0 = time.time()
+    scene, meta, world = forward_scene(config)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    check(meta.has_forward and not meta.has_deferred,
+          "config 1 is not forward only")
+    warm, timed = 2, 8
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms, host_ms, image, aux, launches = timed_frames(
+        scene, meta, world, config, warm, timed)
+    check_launches(launches, {k: v * (warm + timed)
+                              for k, v in FORWARD_PATH.items()}, "forward")
+    check(tuple(image.shape) == (config.height, config.width, 3),
+          f"image {image.shape}")
+    check(bool(torch.isfinite(image).all()), "image is not finite")
+    fwd = float((aux["forward_tri_id"] >= 0).float().mean())
+    check(0.2 < fwd < 0.9, f"forward coverage {fwd:.3f}")
+    check(bool((aux["tri_id"] < 0).all()), "a deferred pixel in config 1")
+    check(float(image[aux["forward_tri_id"] >= 0].std()) > 0.02,
+          "the sphere is flat")
+    captured, _, _ = noted_frame(scene, meta, world, config)
+    busy = phase_profile(scene, meta, world, config, phase="profile_forward")
+    emit("forward", frame_ms=statistics.median(frame_ms),
+         frame_ms_all=frame_ms, host_frame_ms=statistics.median(host_ms),
+         device_busy_ms=busy["device_busy_ms"],
+         device_launches=busy["device_launches"],
+         frames=timed, warmup=warm, triangles=meta.num_triangles,
+         tile=(config.tile_h, config.tile_w),
+         live_pairs={k: int(v) for k, v in aux["live_pairs"].items()},
+         forward_fraction=fwd, light_drops=int(aux["light_drops"]),
+         scene_build_s=round(build_s, 2),
+         peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
+         launches=launches)
+    return captured, launches, warm + timed
+
+
+def phase_golden():
+    """The committed golden scene (tests/test_golden.py::_build, built by
+    the port) on the card through the kernels, in debug views 0, 1, 4, 8
+    and 9, against tests/golden/*.png by tests/test_golden.py's criterion:
+    fewer than 1 % of values off by more than 4/255, median at most
+    1/255. Then view 0 once more with the point-light kernel asked for
+    (the scene's two slots are below point_kernel_min): K5 runs for the
+    deferred pixels and for the forward sphere's, each pass with its own
+    culled lists, and the frame meets the same criterion."""
+    config = TEST_CONFIG
+    scene, meta, view = build_golden_scene(config)
+    out, launches = {}, {}
+    captured = None
+
+    def held(name, image):
+        gold = read_png(os.path.join(REPO, "tests", "golden",
+                                     f"{name}.png"))[..., :3]
+        diff = np.abs(image.cpu().numpy() - gold)
+        frac = float((diff > 4 / 255).mean())
+        med = float(np.median(diff))
+        check(frac < 0.01 and med <= 1 / 255,
+              f"golden {name}: {frac:.4f} of values off by > 4/255, "
+              f"median {med}")
+        return dict(fraction_off=frac, median=med, max_abs=float(diff.max()))
+
+    for name, dv in GOLDEN_VIEWS.items():
+        v = view._replace(debug_view=torch.tensor(dv, dtype=torch.int32))
+        ops.reset_kernel_launch_counts()
+        if dv == 0:
+            with recorded_calls({}) as captured:
+                image, aux = render_frame(scene, v, meta, config)
+        else:
+            image, aux = render_frame(scene, v, meta, config)
+        torch.cuda.synchronize()
+        launches[name] = ops.kernel_launch_counts()
+        want = dict(GOLDEN_PATH)
+        if dv != 0:
+            want.pop("bilinear_tap")  # no skydome in the debug views
+        check_launches(launches[name], want, f"golden {name}")
+        out[name] = held(name, image)
+    points_cfg = config.replace(point_light_kernel="pallas",
+                                point_kernel_min=2)
+    ops.reset_kernel_launch_counts()
+    v = view._replace(debug_view=torch.tensor(0, dtype=torch.int32))
+    with recorded_calls({}) as points:
+        image, aux = render_frame(scene, v, meta, points_cfg)
+    torch.cuda.synchronize()
+    points_launches = ops.kernel_launch_counts()
+    check_launches(points_launches, dict(GOLDEN_PATH, point_lights=2),
+                   "golden, point-light kernel")
+    check(int(aux["light_drops"]) == 0, "golden: point lights dropped")
+    out["final_point_light_kernel"] = held("final", image)
+    emit("golden", views=out, launches=launches["final"],
+         launches_point_light_kernel=points_launches)
+    return (captured, launches["final"]), (points, points_launches)
+
+
 def phase_frame():
     """The main path: 2 warm-up + 8 timed 1080p frames of the demo scene
     at bench config 3's defaults through ``render_frame``: K1-K5 once per
@@ -1120,7 +1457,8 @@ def phase_frame():
     torch.cuda.reset_peak_memory_stats()
     frame_ms, host_ms, image, aux, launches = timed_frames(
         scene, meta, world, config, warm, timed)
-    check_launches(launches, {k: warm + timed for k in MAIN_PATH}, "frame")
+    check_launches(launches, {k: v * (warm + timed)
+                              for k, v in MAIN_PATH.items()}, "frame")
     covered, sky, sf = check_image(image, aux)
 
     # One more frame with the kernels' arguments noted, for phase kernels.
@@ -1142,7 +1480,7 @@ def phase_frame():
          peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
          launches=launches)
     phase_profile(scene, meta, world, config)
-    return scene, meta, world, config, captured, launches
+    return scene, meta, world, config, captured, launches, warm + timed
 
 
 def phase_lights512(scene, meta, world, config, captured: dict) -> None:
@@ -1165,8 +1503,8 @@ def phase_lights512(scene, meta, world, config, captured: dict) -> None:
     warm, timed = 2, 4
     frame_ms, host_ms, image, aux, launches = timed_frames(
         scene, meta, world, config, warm, timed)
-    check_launches(launches, {k: warm + timed for k in MAIN_PATH},
-                   "lights512")
+    check_launches(launches, {k: v * (warm + timed)
+                              for k, v in MAIN_PATH.items()}, "lights512")
     check_image(image, aux)
     noted, _, aux_n = noted_frame(scene, meta, world, config)
     args = noted["point_lights"][0]
@@ -1200,7 +1538,7 @@ def phase_pcf_backends(scene, meta, world, config, captured: dict) -> dict:
         ops.reset_kernel_launch_counts()
         noted, image, aux = noted_frame(scene, meta, world, cfg, view_kw)
         launches = ops.kernel_launch_counts()
-        want = {k: 1 for k in MAIN_PATH if k != "pcf_taps"}
+        want = {k: v for k, v in MAIN_PATH.items() if k != "pcf_taps"}
         want[kernel] = 1
         check_launches(launches, want, f"pcf_backend={backend}")
         for k, v in launches.items():
@@ -1225,7 +1563,7 @@ def phase_pcf_backends(scene, meta, world, config, captured: dict) -> dict:
     return launches_sum
 
 
-def phase_profile(scene, meta, world, config, phase="profile") -> None:
+def phase_profile(scene, meta, world, config, phase="profile") -> dict:
     """Where one frame's device time goes: the ten device operations with
     the largest summed time (torch.profiler), beside the frame's total."""
     from torch.profiler import ProfilerActivity, profile
@@ -1250,10 +1588,17 @@ def phase_profile(scene, meta, world, config, phase="profile") -> None:
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                   key=dev_us, reverse=True)
     total = sum(dev_us(e) for e in rows)
-    emit(phase, device_busy_ms=total / 1e3,
-         device_launches=sum(e.count for e in rows),
+    busy = dict(device_busy_ms=total / 1e3,
+                device_launches=sum(e.count for e in rows))
+    # The gathers (texture and cube row fetches, record gathers) by name.
+    gathers = [e for e in rows if "index" in e.key.lower()
+               or "gather" in e.key.lower()]
+    emit(phase, **busy,
          top=[{"name": e.key[:70], "ms": dev_us(e) / 1e3, "calls": e.count}
-              for e in rows[:10]])
+              for e in rows[:10]],
+         gather_rows=[{"name": e.key[:70], "ms": dev_us(e) / 1e3,
+                       "calls": e.count} for e in gathers[:8]])
+    return busy
 
 
 def phase_frame_vs_plain() -> None:
@@ -1300,7 +1645,8 @@ def phase_engine() -> None:
     ops.reset_kernel_launch_counts()
     frames = [engine.tick() for _ in range(2)]
     launches = ops.kernel_launch_counts()
-    check_launches(launches, {k: 2 for k in MAIN_PATH}, "engine")
+    check_launches(launches, {k: 2 * v for k, v in MAIN_PATH.items()},
+                   "engine")
     for img in frames:
         check(img.dtype == np.uint8 and img.shape == (1080, 1920, 3),
               f"engine presented {img.dtype} {img.shape}")
@@ -1356,12 +1702,31 @@ def main() -> None:
     t0 = time.time()
     info = phase_device()
     phase_build()
-    scene, meta, world, config, captured, launches = phase_frame()
+    scene, meta, world, config, captured, launches, n_frame = phase_frame()
     phase_lights512(scene, meta, world, config, captured)
     pcf_launches = phase_pcf_backends(scene, meta, world, config, captured)
     for name in PCF_BACKEND_KERNEL.values():
         launches[name] = pcf_launches[name]
-    rows = phase_kernels(captured, launches)
+
+    def per_frame(counts, n):
+        return {k: v / n for k, v in counts.items()}
+
+    # Launches per frame of each path: config 3 (K6-K8 in the one frame
+    # through each opt-in PCF backend), config 3t, config 1, the golden
+    # scene's view 0, and that view with the point-light kernel.
+    path_launches = {"frame": {k: v / n_frame if k in MAIN_PATH else v
+                               for k, v in launches.items()}}
+    paths = {"frame": captured}
+    captured3t, launches3t, n3t = phase_frame3t()
+    paths["frame3t"], path_launches["frame3t"] = captured3t, per_frame(
+        launches3t, n3t)
+    captured1, launches1, n1 = phase_forward()
+    paths["forward"], path_launches["forward"] = captured1, per_frame(
+        launches1, n1)
+    for path, (c, counts) in zip(("golden", "golden_points"),
+                                 phase_golden()):
+        paths[path], path_launches[path] = c, counts
+    rows = phase_kernels(captured, launches, paths, path_launches)
     check(not FAILURES, "; ".join(FAILURES))
     phase_frame_vs_plain()
     phase_engine()

@@ -43,11 +43,16 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     from zeldaengine_tpu_torch.engine import Engine
     from zeldaengine_tpu_torch.passes import build_view_state
     from zeldaengine_tpu_torch.scene import build_demo_scene, make_demo_world
+    from zeldaengine_tpu_torch.scene.demo import (
+        build_golden_scene, build_textured_demo_scene)
 
     if torch.cuda.is_available():
         pytest.skip("a card is present: the defaults run on it")
     with pytest.raises(RuntimeError, match="cuda"):
         build_demo_scene(TEST_CONFIG, grass=2, rocks=1)
+    for build in (build_textured_demo_scene, build_golden_scene):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build(TEST_CONFIG)
     with pytest.raises(RuntimeError, match="cuda"):
         build_view_state(make_demo_world(), TEST_CONFIG)
     with pytest.raises(RuntimeError, match="cuda"):

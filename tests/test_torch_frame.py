@@ -51,7 +51,8 @@ def default_cfg():
 def reference_op_by_op(default_cfg):
     """The JAX package's frame of the default configuration with
     ``jax.disable_jit()``: the same program, run one primitive at a time,
-    so that XLA cannot fuse a multiply into the add that follows it."""
+    so that XLA cannot fuse a multiply into the add that follows it (the
+    goldens and the comparisons above use it jitted)."""
     jcfg = JCFG.replace(point_light_kernel="unroll")
     jscene, jmeta, jworld = j_build(jcfg, grass=GRASS, rocks=ROCKS)
     jview = j_view(jworld, jcfg, **VIEW)
@@ -67,26 +68,31 @@ def _off(a, b):
 
 
 def test_frame_meets_golden_criterion_against_the_reference_op_by_op(
-        default_cfg, reference_op_by_op):
+        default_cfg):
     """Default configuration (``shadow_bias=0``), same carried-across scene
-    and view: the port's frame meets the golden criterion against the JAX
-    package's frame when that runs without fused multiply-adds, which is
-    the arithmetic the port has on every device (its kernels are compiled
-    without contraction)."""
-    _, _, scene, view, meta, cfg = default_cfg
-    nimg, naux = reference_op_by_op
+    and view, against the JAX package's frame as it runs by default, jitted
+    (the arithmetic its goldens were rendered with): the port fuses the
+    multiply-adds that XLA fuses on the CPU in the setup, the vertex
+    transforms and the raster depth, so the shadow map is the reference's
+    bit for bit and the frame meets the golden criterion."""
+    jimg, jaux, scene, view, meta, cfg = default_cfg
     img, aux = render_frame(scene, view, meta, cfg)
     assert tuple(img.shape) == (128, 128, 3) and img.dtype == torch.float32
     assert bool(torch.isfinite(img).all())
-    assert_golden(img.numpy(), nimg)
-    # Shadow map at every texel, depth at every pixel both see the same
-    # triangle in: 5e-5 (measured: 9e-7).
-    np.testing.assert_allclose(aux["shadowmap"].numpy(), naux["shadowmap"],
-                               atol=5e-5, rtol=0)
-    same = aux["tri_id"].numpy() == naux["tri_id"]
+    assert_golden(img.numpy(), jimg)
+    # The shadow map bit for bit but at 2 texels: there a sliver triangle
+    # whose edge values are all within rounding of zero passes the
+    # reference's brute-force coverage test far outside its bbox, which
+    # the pair raster never visits; such a texel can only be nearer in the
+    # reference.
+    sm, jsm = aux["shadowmap"].numpy(), np.asarray(jaux["shadowmap"])
+    off = sm != jsm
+    assert off.sum() <= 2 and (jsm[off] < sm[off]).all()
+    same = aux["tri_id"].numpy() == np.asarray(jaux["tri_id"])
     assert same.mean() > 0.999
     for key in ("gbuffer_depth", "depth"):
-        np.testing.assert_allclose(aux[key].numpy()[same], naux[key][same],
+        np.testing.assert_allclose(aux[key].numpy()[same],
+                                   np.asarray(jaux[key])[same],
                                    atol=5e-5, rtol=0, err_msg=key)
 
 
@@ -104,18 +110,13 @@ def test_frame_meets_golden_criterion_with_a_compare_bias():
 
 def test_frame_default_config_differs_only_through_shadow_noise(
         default_cfg, reference_op_by_op):
-    """Against the JITTED reference frame at the default ``shadow_bias=0``
-    the golden criterion is NOT met: about 3 % of values are off by more
-    than 4/255 where it allows 1 %. The reference differs from ITSELF by
-    the same amount: jitted, XLA contracts multiply-adds (shown bit for
-    bit in test_torch_rasterize.py); run op by op it does not, its shadow
-    depth moves by 1e-5..1e-3 on the 1 % of texels that lie on
-    small-determinant triangles, and the PCF compare ``tap < z`` has no
-    margin on surfaces facing the light, so single taps (3.6 % of a lit
-    value) flip. The port lands on the op-by-op side (previous test).
-    Given the jitted reference's shadow map the port's frame meets the
-    criterion against the jitted frame, so the shadow map is the whole
-    difference."""
+    """At the default ``shadow_bias=0`` the shadow compare ``tap < z`` has
+    no margin on surfaces facing the light, so one rounding upstream flips
+    taps: the JAX package's frame run op by op (no fused multiply-adds) is
+    1-6 % of values off its own jitted frame, where the golden criterion
+    allows 1 %. The port follows the jitted arithmetic and lands well
+    inside it; given the jitted reference's shadow map, its frame is the
+    same frame."""
     jimg, jaux, scene, view, meta, cfg = default_cfg
     nimg, _ = reference_op_by_op
     same_map, _ = render_rows(
@@ -123,19 +124,16 @@ def test_frame_default_config_differs_only_through_shadow_noise(
         shadowmap_override=torch.from_numpy(np.array(jaux["shadowmap"])))
     assert_golden(same_map.numpy(), jimg, "frame on the JAX shadow map")
     img, _ = render_frame(scene, view, meta, cfg)
-    diff = np.abs(img.numpy() - jimg)
-    assert float(np.median(diff)) <= 1 / 255
+    assert torch.equal(img, same_map)
     port_off, self_off = _off(img.numpy(), jimg), _off(nimg, jimg)
-    assert 0.01 < self_off < 0.06   # the reference fails against itself
-    assert abs(port_off - self_off) < 0.005
-    assert port_off < 0.06
+    assert 0.01 < self_off < 0.06   # op by op fails against jitted
+    assert port_off < 0.002
 
 
 def test_frame_aux_buffers(default_cfg):
-    """Against the jitted reference's buffers: equal within 5e-5 except on
-    small-determinant triangles (zc ~ 1/det up to 3e4), where contraction
-    moves depth by up to a few 1e-3; the op-by-op reference is held at
-    every texel in the test above."""
+    """Against the jitted reference's buffers: depths within 5e-5 (both
+    interpolate depth in the same fused form; the first test holds the
+    shadow map bit for bit), sky depth within 1e-4."""
     jimg, jaux, scene, view, meta, cfg = default_cfg
     _, aux = render_frame(scene, view, meta, cfg)
     same = aux["tri_id"].numpy() == np.asarray(jaux["tri_id"])
@@ -188,33 +186,3 @@ def test_exact_pcf_backend_and_torch_raster_give_the_same_frame(default_cfg):
             assert_golden(img.numpy(), base.numpy())
         else:
             assert covered_equal, kw
-
-
-def test_golden_scene_is_outside_the_slice():
-    """tests/golden/final.png shows a forward-shaded sphere and a textured
-    cube (tests/test_golden.py::_build): its scene descriptor does not
-    match what this slice ports, so the port refuses it rather than
-    render something else."""
-    from zeldaengine_tpu_torch.scene import make_cube, make_plane, make_sphere
-    from zeldaengine_tpu_torch.scene.scenebuild import SceneBuilder
-    from zeldaengine_tpu_torch.scene.world import World
-
-    cfg = TEST_CONFIG.replace(point_light_kernel="unroll")
-    b = SceneBuilder(cfg)
-    c = (np.indices((cfg.texture_size,) * 2).sum(0) // 8 % 2).astype(
-        np.float32)
-    checker = np.stack(
-        [0.15 + 0.55 * c, 0.25 + 0.2 * c, 0.7 - 0.45 * c, np.ones_like(c)],
-        -1)
-    b.add_object(make_plane(4.0), b.add_material({}), deferred=True)
-    b.add_object(make_cube(1.0, center=(0, 0, 0.5)),
-                 b.add_material({0: checker}), deferred=True)
-    b.add_object(make_sphere(0.35, rings=12, sectors=18),
-                 b.add_material({}), deferred=False)
-    scene, meta = b.build("cpu")
-    assert meta.has_forward and meta.tex_channels != ()
-    view = build_view_state(World(), cfg, device="cpu")
-    with pytest.raises(NotImplementedError) as err:
-        render_frame(scene, view, meta, cfg)
-    assert "forward pass" in str(err.value)
-    assert "textured materials" in str(err.value)

@@ -6,7 +6,6 @@ default path."""
 
 import dataclasses
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -62,16 +61,21 @@ def test_default_frame_matches_the_jax_kernel_frame(carried, monkeypatch):
     img, aux = render_frame(scene, view, meta, cfg)
     assert [c["block_h"] for c in calls] == [cfg.point_block_h]
     assert int(aux["light_drops"]) == 0
-    # The JAX frame run op by op: jitted, XLA contracts multiply-adds and
-    # edge pixels change triangle (test_torch_rasterize.py shows it bit for
-    # bit); the port never contracts.
-    with jax.disable_jit():
-        jimg, jaux = j_render(jscene, jview, jmeta,
-                              jcfg.replace(point_light_kernel="pallas"))
-    np.testing.assert_array_equal(aux["tri_id"].numpy(), jaux["tri_id"])
+    # The JAX frame as it runs by default, jitted: the port fuses the
+    # multiply-adds XLA fuses in the setup, the transforms and the raster
+    # depth (test_torch_rasterize.py), so every pixel sees the same
+    # triangle but at exact depth ties, which the port resolves by pair
+    # order and the reference's CPU raster by triangle order (PARITY.md,
+    # "Depth-tie winner deviation"): one pixel here.
+    jimg, jaux = j_render(jscene, jview, jmeta,
+                          jcfg.replace(point_light_kernel="pallas"))
+    same = aux["tri_id"].numpy() == np.asarray(jaux["tri_id"])
+    assert (~same).sum() <= 1
+    np.testing.assert_array_equal(aux["depth"].numpy()[~same],
+                                  np.asarray(jaux["depth"])[~same])
     # tests/test_lighting_pallas.py:117's tolerance.
-    np.testing.assert_allclose(img.numpy(), np.asarray(jimg), rtol=1e-5,
-                               atol=1e-5)
+    np.testing.assert_allclose(img.numpy()[same], np.asarray(jimg)[same],
+                               rtol=1e-5, atol=1e-5)
     # ... and the unrolled loop of the port gives the same frame.
     unrolled, _ = render_frame(scene, view, meta,
                                cfg.replace(point_light_kernel="unroll"))

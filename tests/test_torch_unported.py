@@ -54,15 +54,11 @@ _UNPORTED = {
     "shading": [
         (dict(reflection_half=True), "half"),
         (dict(ablate="nopcf"), "ablations"),
-        ("no_cube_const", "samplers"),
     ],
     "scene_facts": [
-        ("has_forward", "forward_shade"),
         ("has_meshlets", "culling"),
-        ("tex_channels", "samplers"),
     ],
     "view_and_bands": [
-        ("debug_view", "_debug_switch"),
         ("band", "parallel/tiles.py"),
     ],
 }
@@ -73,16 +69,10 @@ def _apply(change, scene, view, meta, cfg):
     kw = {}
     if isinstance(change, dict):
         cfg = cfg.replace(**change)
-    elif change == "debug_view":
-        view = view._replace(debug_view=torch.tensor(4, dtype=torch.int32))
     elif change == "band":
         kw = dict(y0=0, rows=64, full_frame=False)
-    elif change == "no_cube_const":
-        scene = scene._replace(cube_const=None)
     else:
-        value = {"has_forward": True, "has_meshlets": True,
-                 "tex_channels": (0, 1, 2)}[change]
-        meta = dataclasses.replace(meta, **{change: value})
+        meta = dataclasses.replace(meta, **{change: True})
     return scene, view, meta, cfg, kw
 
 

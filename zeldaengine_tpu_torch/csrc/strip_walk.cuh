@@ -32,7 +32,9 @@
 //
 // Arithmetic is written in the operation order of the plain PyTorch
 // version (ops/rasterize_cuda.py) and the file is compiled with
-// -fmad=false, so coverage and depth agree with it bit for bit.
+// -fmad=false: the only fused multiply-adds are the explicit __fmaf_rn of
+// the edge values and the depth, which the plain version emulates exactly,
+// so coverage and depth agree with it bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -312,16 +314,17 @@ __device__ __forceinline__ void walk(
       const float b0 = q0.w, b1 = q1.x, b2 = q1.y;
       const float c0 = q1.z, c1 = q1.w, c2 = q2.x;
       const float z0 = q2.y, z1 = q2.z, z2 = q2.w;
-      // With X1 the column products are the same for every k: computed
-      // once, they are the same values, so the sums are bit for bit those
-      // of the plain version.
-      const float xa = px[0] * a0, xb = px[0] * b0, xc = px[0] * c0;
+      // Edge values fma(a, px, b * py) + c and depth
+      // fma(e2, z2, fma(e0, z0, e1 * z1)): the JAX package's compiled
+      // form (ops/rasterize.py::edge_value, plane_depth). With X1 every k
+      // shares px[0].
 #pragma unroll
       for (int k = 0; k < NPP; ++k) {
-        const float e0 = (X1 ? xa : px[k] * a0) + py[k] * a1 + a2;
-        const float e1 = (X1 ? xb : px[k] * b0) + py[k] * b1 + b2;
-        const float e2 = (X1 ? xc : px[k] * c0) + py[k] * c1 + c2;
-        const float d = e0 * z0 + e1 * z1 + e2 * z2;
+        const float x = X1 ? px[0] : px[k];
+        const float e0 = __fmaf_rn(a0, x, py[k] * a1) + a2;
+        const float e1 = __fmaf_rn(b0, x, py[k] * b1) + b2;
+        const float e2 = __fmaf_rn(c0, x, py[k] * c1) + c2;
+        const float d = __fmaf_rn(e2, z2, __fmaf_rn(e0, z0, e1 * z1));
         const float esum = e0 + e1 + e2;
         const float emin = fminf(fminf(e0, e1), e2);
         const bool inside =

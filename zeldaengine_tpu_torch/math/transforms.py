@@ -23,6 +23,9 @@ switched off at package import).
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import numpy as np
 import torch
 
@@ -214,21 +217,90 @@ def euler_instance_matrix(rotation3):
     return torch.swapaxes(make_rot_matrix(rotation3), -1, -2)
 
 
+def fma_f32(a: torch.Tensor, b, c, backend: str = "auto") -> torch.Tensor:
+    """fp32 ``a * b + c`` with ONE rounding (a fused multiply-add), the
+    operands broadcast together; ``b`` and ``c`` may be Python numbers
+    (fp32 constants). Tensors on the card go to kernel ``fma``
+    (``csrc/fma.cu``, ``__fmaf_rn``) in one launch; CPU tensors (or
+    ``backend="torch"``) to ``fma_f32_plain``."""
+    from zeldaengine_tpu_torch.ops import _build
+    from zeldaengine_tpu_torch.ops.rasterize_cuda import _use_kernel
+
+    if not _use_kernel(a, backend):
+        return fma_f32_plain(a, b, c)
+    dev = a.device
+    tensors = [x for x in (a, b, c) if isinstance(x, torch.Tensor)]
+    for x in tensors:
+        if x.dtype != torch.float32 or x.device != dev:
+            raise ValueError(f"fma_f32: expected float32 tensors on {dev}, "
+                             f"got {x.dtype} on {x.device}")
+    views = iter(torch.broadcast_tensors(*tensors))  # stride 0: broadcast
+    ops = [next(views) if isinstance(x, torch.Tensor) else float(x)
+           for x in (a, b, c)]
+    shape = ops[0].shape
+    if len(shape) > 6:
+        raise ValueError(f"fma_f32: at most 6 dimensions, got {len(shape)}")
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    meta = list(shape)
+    for x in ops:  # strides in elements
+        meta += (list(x.stride()) if isinstance(x, torch.Tensor)
+                 else [0] * len(shape))
+    meta = (ctypes.c_longlong * max(1, len(meta)))(*meta)
+    ptrs = [x.data_ptr() if isinstance(x, torch.Tensor) else None
+            for x in ops]
+    vals = [0.0 if isinstance(x, torch.Tensor) else x for x in ops]
+    with torch.cuda.device(dev):
+        code = _build.load().zk_fma(
+            *ptrs, *vals, out.data_ptr(), out.numel(), len(shape), meta,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "fma")
+    _FMA_WRAPPER.launches += 1
+    return out
+
+
+fma_f32.launches = 0
+# The count lives on the wrapper but is raised under this name: this
+# module's own callers reach ``fma_f32`` through its global name, which a
+# caller may patch to note the calls.
+_FMA_WRAPPER = fma_f32
+
+
+def fma_f32_plain(a: torch.Tensor, b, c) -> torch.Tensor:
+    """Plain PyTorch version of ``fma_f32`` (any device). The fp32 product
+    is exact in fp64; the fp64 sum is rounded to odd (its error recovered
+    by TwoSum and folded into the last bit), so the final cast to fp32
+    rounds once, correctly: no double rounding."""
+    def f64(x):  # Python numbers become fp32 constants first
+        return torch.as_tensor(x, dtype=torch.float32,
+                               device=a.device).double()
+
+    p = f64(a) * f64(b)
+    c = f64(c)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    odd = torch.nextafter(s, torch.copysign(torch.full_like(s, math.inf),
+                                            err))
+    s = torch.where((err != 0) & even & torch.isfinite(s), odd, s)
+    return s.float()
+
+
 def apply_mat4_point(m, p):
-    """(..., 4, 4) @ point (..., 3) with w=1 -> (..., 3) (no divide)."""
-    return (
-        p[..., 0, None] * m[..., :3, 0]
-        + p[..., 1, None] * m[..., :3, 1]
-        + p[..., 2, None] * m[..., :3, 2]
-        + m[..., :3, 3]
-    )
+    """(..., 4, 4) @ point (..., 3) with w=1 -> (..., 3) (no divide), as
+    the JAX package's compiled frame sums it on the CPU:
+    fma(p2, m2, fma(p0, m0, p1 * m1)) + m3."""
+    return _mat4_sum(m[..., :3, :], p)
 
 
 def apply_mat4_h(m, p):
-    """(4,4) @ (..., 3, ) point with w=1 -> homogeneous (..., 4)."""
-    return (
-        p[..., 0, None] * m[..., :, 0]
-        + p[..., 1, None] * m[..., :, 1]
-        + p[..., 2, None] * m[..., :, 2]
-        + m[..., :, 3]
-    )
+    """(4,4) @ (..., 3, ) point with w=1 -> homogeneous (..., 4), summed
+    as ``apply_mat4_point``."""
+    return _mat4_sum(m, p)
+
+
+def _mat4_sum(m, p):
+    t = fma_f32(p[..., 0, None], m[..., :, 0], p[..., 1, None] * m[..., :, 1])
+    return fma_f32(p[..., 2, None], m[..., :, 2], t) + m[..., :, 3]

@@ -33,6 +33,7 @@ from zeldaengine_tpu_torch.ops.pcf_window import (
     compute_pcf_pallas,
     compute_pcf_pallas_plain,
 )
+from zeldaengine_tpu_torch.math.transforms import fma_f32
 from zeldaengine_tpu_torch.ops.pcf_tables import (
     build_pcf_window_table,
     build_pcf_window_table_plain,
@@ -53,6 +54,7 @@ KERNEL_WRAPPERS = {
     "pcf_window": compute_pcf_pallas,
     "pcf_window_table": build_pcf_window_table,
     "pcf_window2d_table": build_pcf_window2d_table,
+    "fma": fma_f32,
 }
 
 

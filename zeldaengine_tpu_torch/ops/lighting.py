@@ -18,7 +18,8 @@ import torch
 
 from zeldaengine_tpu_torch.ops import pbr
 from zeldaengine_tpu_torch.ops.lighting_cuda import point_lighting
-from zeldaengine_tpu_torch.ops.texture import cube_direction_to_face_uv
+from zeldaengine_tpu_torch.ops.texture import (
+    cube_direction_to_face_uv, sample_cubemap_lod)
 
 
 def direct_lighting(
@@ -290,25 +291,39 @@ def reflection_color(base_color, metallic, roughness, n, v, ndotv, ao,
                      cube_const=None):
     """Base.frag:104-112 / BaseLighting.frag:213-221: IBL reflection.
 
-    Only the constant-lod tier is ported: a scene whose minimum material
-    roughness is exactly 1.0 carries ``cube_const`` (6, 2, 2, 3), and every
-    reflection tap is a per-face bilinear over that table (selects, no
-    gather) - the exact uv/clamp/lerp math of the variable-lod sampler at
-    its one fixed mip. The variable-lod taps (``cube_pair1``, the quad
-    atlas, ``env_fetch``) and ``half`` raise.
+    Three tiers, by what the scene build attached: ``cube_const`` (minimum
+    material roughness exactly 1.0: every tap reads one fixed 2x2 mip, a
+    per-face bilinear over a (6, 2, 2, 3) table, selects and no gather),
+    ``cube_pair1`` (minimum roughness >= 0.031: one row fetch of the
+    half-resolution mip-pair cube at lod - 1) and the quad-packed cube
+    atlas at the reflection lod. ``env_fetch``, ``half`` and ``ablate``
+    raise.
     """
     if env_fetch is not None or half or ablate:
         raise NotImplementedError(
             "reflection options env_fetch / half / ablate are not ported "
             "yet (ROADMAP.md A4: ops/lighting.py::reflection_color)")
-    if cube_const is None:
-        raise NotImplementedError(
-            "variable-lod cubemap reflection (cube_pair1 / quad atlas "
-            "samplers) is not ported yet (ROADMAP.md A4: ops/texture.py "
-            "samplers)")
     spec = pbr.compute_f0(specular, base_color, metallic)
     brdf = pbr.env_brdf_approx(spec, roughness, ndotv)
     r = pbr.refract(v, pbr.normalize(n), 1.0 / 1.52)
+    refl_v = pbr.specular_occlusion(ndotv, roughness * roughness, ao)
+    if cube_const is None:
+        mips = pbr.reflection_mip_from_roughness(
+            roughness, torch.tensor(float(sky_max_mips),
+                                    dtype=torch.float32, device=r.device))
+        zero_i = torch.zeros(mips.shape, dtype=torch.int32, device=r.device)
+        if cube_pair1 is not None:
+            # Exact whenever lod >= 1 (level k of the half-resolution chain
+            # is cube level k + 1); the scene build attaches the table only
+            # when its minimum roughness guarantees that.
+            refl_l = sample_cubemap_lod(
+                cube_pair1, zero_i, r, mips - 1.0, cubemap_size // 2,
+                quad=False)[..., :3] * 10.0
+        else:
+            refl_l = sample_cubemap_lod(
+                cube_atlas, zero_i, r, mips, cubemap_size,
+                quad=cube_atlas.shape[-1] % 13 != 0)[..., :3] * 10.0
+        return refl_l * refl_v[..., None] * brdf
 
     face, uv = cube_direction_to_face_uv(r)
     uv = torch.clamp(uv, 0.25, 0.75)  # sample_cubemap_lod half-texel
@@ -347,7 +362,6 @@ def reflection_color(base_color, metallic, roughness, n, v, ndotv, ao,
     lo_top = t00 * (1 - fu) + t10 * fu
     lo_bot = t01 * (1 - fu) + t11 * fu
     refl_l = (lo_top * (1 - fv) + lo_bot * fv) * 10.0
-    refl_v = pbr.specular_occlusion(ndotv, roughness * roughness, ao)
     return refl_l * refl_v[..., None] * brdf
 
 

@@ -30,6 +30,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from zeldaengine_tpu_torch.math.transforms import fma_f32, fma_f32_plain
+
 
 class TriangleSetup(NamedTuple):
     """Per-triangle rasterization constants (all shapes (T, ...))."""
@@ -44,6 +46,20 @@ class TriangleSetup(NamedTuple):
     # bounds every covered pixel's depth from below. Drives the
     # front-to-back pair ordering of the pair rasterizer.
     zmin: Optional[torch.Tensor] = None  # (T,) float32 in [0, 1]
+
+
+def edge_value(a, b, c, px, py):
+    """Edge function a*px + b*py + c in the JAX package's compiled form on
+    the CPU (where its goldens were rendered): fma(a, px, b*py) + c. The
+    plain rasterizers' arithmetic: plain PyTorch on every device."""
+    return fma_f32_plain(a, px, b * py) + c
+
+
+def plane_depth(e0, e1, e2, z0, z1, z2):
+    """Depth e0*z0 + e1*z1 + e2*z2 in the same compiled form:
+    fma(e2, z2, fma(e0, z0, e1*z1)). Kernels ``pair_raster`` and
+    ``pair_raster_fused`` evaluate both with ``__fmaf_rn``."""
+    return fma_f32_plain(e2, z2, fma_f32_plain(e0, z0, e1 * z1))
 
 
 def triangle_setup(
@@ -82,16 +98,26 @@ def triangle_setup(
     y0, y1, y2 = yp[..., 0], yp[..., 1], yp[..., 2]
     w0, w1, w2 = w[..., 0], w[..., 1], w[..., 2]
 
-    # Adjugate of M = [[x0,x1,x2],[y0,y1,y2],[w0,w1,w2]] (columns=vertices).
-    adj = torch.stack(
-        [
-            torch.stack([y1 * w2 - y2 * w1, x2 * w1 - x1 * w2, x1 * y2 - x2 * y1], -1),
-            torch.stack([y2 * w0 - y0 * w2, x0 * w2 - x2 * w0, x2 * y0 - x0 * y2], -1),
-            torch.stack([y0 * w1 - y1 * w0, x1 * w0 - x0 * w1, x0 * y1 - x1 * y0], -1),
-        ],
-        -2,
-    )  # (T, 3, 3)
-    det = x0 * adj[..., 0, 0] + x1 * adj[..., 1, 0] + x2 * adj[..., 2, 0]
+    # Adjugate of M = [[x0,x1,x2],[y0,y1,y2],[w0,w1,w2]] (columns=vertices):
+    # row i from vertices i+1 and i+2 (mod 3), [y1 w2 - y2 w1, x2 w1 - x1 w2,
+    # x1 y2 - x2 y1] for row 0. Multiply-adds are fused where XLA fuses them
+    # in the JAX package's compiled frame (on the CPU, where its goldens
+    # were rendered): each 2x2 minor a*b - c*d as fma(a, b, -(c*d)), the
+    # determinant as fma(x2, ., fma(x0, ., x1 * .)). Near-degenerate
+    # triangles (the shadow pass is full of them) amplify the one-rounding
+    # difference. All nine minors go through one fma.
+    def nxt(t, k):  # vertex i + k of row i
+        return torch.roll(t, -k, dims=-1)
+
+    xa, xb = nxt(xp, 1), nxt(xp, 2)
+    ya, yb = nxt(yp, 1), nxt(yp, 2)
+    wa, wb = nxt(w, 1), nxt(w, 2)
+    adj = fma_f32(torch.stack([ya, xb, xa], -1),
+                  torch.stack([wb, wa, yb], -1),
+                  -(torch.stack([yb, xa, xb], -1)
+                    * torch.stack([wa, wb, ya], -1)))  # (T, 3, 3)
+    det = fma_f32(x2, adj[..., 2, 0],
+                  fma_f32(x0, adj[..., 0, 0], x1 * adj[..., 1, 0]))
 
     # Orientation: Vulkan front face is COUNTER_CLOCKWISE in y-down
     # framebuffer coords (ZeldaEngine.cpp:5118), which in this matrix
@@ -116,7 +142,8 @@ def triangle_setup(
     det_scaled = det * sign / scale  # positive
     safe_det = torch.where(torch.abs(det_scaled) > 1e-20, det_scaled, one)
     # depth(p) = dot(u, z)/det_scaled with u = edge @ p; fold 1/det into zc.
-    zc = z * (1.0 / safe_det)[..., None] * torch.ones_like(z)
+    inv_det = 1.0 / safe_det
+    zc = z * inv_det[..., None]
 
     keep = keep & (torch.abs(det_scaled) > 1e-20)
 
@@ -124,16 +151,20 @@ def triangle_setup(
         const_f, slope_f = depth_bias
         # Screen-space depth gradient: depth(p) = dot(u, zc) with
         # u = edge @ (px, py, 1)  =>  dz/dpx = sum_i zc_i * edge[i, 0].
-        # The sum cancels heavily (zc ~ 1/det while the gradient is small):
-        # accumulation orders differ by up to ~1e-3 in slope on triangles
-        # with a small determinant. Plain fp32, in index order.
-        zrow = (zc[..., :, None] * edge).sum(-2)
+        # The sum cancels heavily (zc ~ 1/det while the gradient is small),
+        # so its accumulation order is part of the result: it is the JAX
+        # package's compiled form, a fused multiply-add chain over i, as
+        # are the bias (fma(slope, slope_f, const)) and the biased zc
+        # (fma(z, 1/det, bias/det * w)).
+        zrow = zc[..., 0, None] * edge[..., 0, :]
+        for i in (1, 2):
+            zrow = fma_f32(zc[..., i, None], edge[..., i, :], zrow)
         slope = torch.maximum(torch.abs(zrow[..., 0]), torch.abs(zrow[..., 1]))
-        bias = slope_f * slope + const_f * 1.1920929e-7
+        bias = fma_f32(slope, slope_f, const_f * 1.1920929e-7)
         # Add a constant to the interpolated depth: with the scaled edges,
         # sum(u_i * w_i) = det_scaled, so zc_i += bias * w_i / det_scaled
         # shifts depth(p) by exactly bias.
-        zc = zc + (bias / safe_det)[..., None] * w
+        zc = fma_f32(z, inv_det[..., None], (bias / safe_det)[..., None] * w)
 
     # Conservative screen bbox of the visible region. If any w is near/behind
     # zero the projection is unbounded -> full screen.
@@ -188,17 +219,14 @@ def _coverage_chunk(edge, zc, valid, px, py):
     Returns (depth, covered) of shape (K, H, W).
     """
     # u_i = edge[i,0]*px + edge[i,1]*py + edge[i,2]
-    e = edge[:, :, 0, None, None] * px + edge[:, :, 1, None, None] * py \
-        + edge[:, :, 2, None, None]  # (K, 3, H, W)
+    e = edge_value(edge[:, :, 0, None, None], edge[:, :, 1, None, None],
+                   edge[:, :, 2, None, None], px, py)  # (K, 3, H, W)
     inside = torch.all(e >= 0.0, dim=1)  # (K, H, W)
     # Reject the fully-degenerate all-zero case (u = 0 vector).
     esum = e[:, 0] + e[:, 1] + e[:, 2]
     inside = inside & (esum > 0.0)
-    depth = (
-        e[:, 0] * zc[:, 0, None, None]
-        + e[:, 1] * zc[:, 1, None, None]
-        + e[:, 2] * zc[:, 2, None, None]
-    )
+    z = [zc[:, i, None, None] for i in range(3)]
+    depth = plane_depth(e[:, 0], e[:, 1], e[:, 2], *z)
     # Vulkan depth clip: 0 <= z_ndc <= 1 (z < 0 is behind the near plane).
     covered = inside & (depth >= 0.0) & (depth <= 1.0) & valid[:, None, None]
     depth = torch.where(covered, depth, torch.full_like(depth, float("inf")))

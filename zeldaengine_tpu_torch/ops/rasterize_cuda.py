@@ -24,6 +24,9 @@ Same math as ``ops/rasterize.py`` (homogeneous edge functions from
 Depth is evaluated in barycentric form, ``d = sum_i e_i * zc_i``: the
 algebraically-equivalent folded screen-linear form cancels
 catastrophically near z ~ 1, where shadow projections pack their depth.
+Edge values and depth are fused multiply-adds in the JAX package's
+compiled order (``ops/rasterize.py::edge_value``, ``plane_depth``; the
+kernels use ``__fmaf_rn``, which ``-fmad=false`` leaves in place).
 
 Beside each kernel stands its plain PyTorch version
 (``rasterize_pairs_plain``, ``rasterize_pairs_fused_plain``) on the same
@@ -38,7 +41,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from zeldaengine_tpu_torch.ops import _build
-from zeldaengine_tpu_torch.ops.rasterize import TriangleSetup
+from zeldaengine_tpu_torch.ops.rasterize import (
+    TriangleSetup, edge_value, plane_depth)
 
 
 class PairedTriangles(NamedTuple):
@@ -397,12 +401,17 @@ def _tile_pair_list(pairs: PairedTriangles, n_ty: int, n_tx: int,
 def _plain_visibility(pairs: PairedTriangles, height: int, width: int,
                       init_depth, tile_h: int, tile_w: int,
                       want_id: bool = True, chunk_elems: int = 1 << 22,
-                      entries=None):
+                      entries=None, sub_rows: int = 8, y_row: int = -1):
     """(depth (H, W), winner pair id (H, W) int64 or None) by the kernel's
     rule: minimum depth; lowest pair id among minimum-depth candidates;
     ``init_depth`` wins ties with id -1. Candidates are evaluated with the
     kernel's arithmetic in the kernel's operation order. ``entries``: the
-    (tiles, pair ids) to walk, by default every tile's whole sequence."""
+    (tiles, pair ids) to walk, by default every tile's whole sequence.
+    With ``y_row`` >= 0 a pixel tests only the pairs its warp of the strip
+    walk tests (``strip_walk_hits``): the walk's skips are exact for every
+    pixel inside a pair's bbox, but a sliver triangle whose edge values all
+    lie within rounding of zero can pass the coverage test outside it, and
+    the kernels and this version must agree there too."""
     dev = pairs.records.device
     assert height % tile_h == 0 and width % tile_w == 0, (
         height, width, tile_h, tile_w)
@@ -414,6 +423,11 @@ def _plain_visibility(pairs: PairedTriangles, height: int, width: int,
     tp = tile_h * tile_w
     loc = torch.arange(tp, device=dev)
     lx, ly = loc % tile_w, loc // tile_w
+    walk_hit = None
+    if y_row >= 0:
+        walk_hit = _walk_hits(pairs, tiles, pids, width, tile_h, tile_w,
+                              sub_rows, y_row)
+        warp = loc // (32 * _pixels_per_thread(tile_h, tile_w))
     if init_depth is None:
         init = torch.ones((height * width,), dtype=torch.float32, device=dev)
     else:
@@ -433,13 +447,15 @@ def _plain_visibility(pairs: PairedTriangles, height: int, width: int,
         def c(i):
             return r[:, i : i + 1]
 
-        e0 = px * c(0) + py * c(1) + c(2)
-        e1 = px * c(3) + py * c(4) + c(5)
-        e2 = px * c(6) + py * c(7) + c(8)
-        d = e0 * c(9) + e1 * c(10) + e2 * c(11)
+        e0 = edge_value(c(0), c(1), c(2), px, py)
+        e1 = edge_value(c(3), c(4), c(5), px, py)
+        e2 = edge_value(c(6), c(7), c(8), px, py)
+        d = plane_depth(e0, e1, e2, c(9), c(10), c(11))
         esum = e0 + e1 + e2
         emin = torch.minimum(torch.minimum(e0, e1), e2)
         inside = (emin >= 0.0) & (esum > 0.0) & (d >= 0.0) & (d <= 1.0)
+        if walk_hit is not None:
+            inside = inside & walk_hit[sl][:, warp]
         cand = torch.where(inside, d, torch.full_like(d, inf))
         return cand.reshape(-1), (gy * width + gx).reshape(-1)
 
@@ -480,10 +496,12 @@ def _map_tid(pairs: PairedTriangles, pid):
 
 def rasterize_pairs_plain(pairs: PairedTriangles, height: int, width: int,
                           init_depth=None, tile_h: int = 32,
-                          tile_w: int = 128, depth_only: bool = False):
+                          tile_w: int = 128, depth_only: bool = False,
+                          sub_rows: int = 8, y_row: int = -1):
     """Plain PyTorch version of ``rasterize_pairs`` (any device)."""
     depth, pid = _plain_visibility(pairs, height, width, init_depth, tile_h,
-                                   tile_w, want_id=not depth_only)
+                                   tile_w, want_id=not depth_only,
+                                   sub_rows=sub_rows, y_row=y_row)
     if depth_only:
         return depth
     return depth, _map_tid(pairs, pid)
@@ -545,7 +563,8 @@ def rasterize_pairs_split_plain(pairs: PairedTriangles, height: int,
                                 depth_only: bool = False,
                                 split_parts: int = SPLIT_PARTS,
                                 split_min_chunks: int = SPLIT_MIN_CHUNKS,
-                                chunk: int = SPLIT_CHUNK):
+                                chunk: int = SPLIT_CHUNK,
+                                sub_rows: int = 8, y_row: int = -1):
     """Kernel ``pair_raster``'s split in PyTorch: the plain walk over each
     part of each tile's sequence (``split_parts_of``), merged as the kernel
     merges it. A tile of one part keeps that part's result. Split tiles take
@@ -573,7 +592,8 @@ def rasterize_pairs_split_plain(pairs: PairedTriangles, height: int,
         sel = part == p
         depth_p, pid_p = _plain_visibility(
             pairs, height, width, init, tile_h, tile_w,
-            want_id=not depth_only, entries=(tiles[sel], pids[sel]))
+            want_id=not depth_only, entries=(tiles[sel], pids[sel]),
+            sub_rows=sub_rows, y_row=y_row)
         if first is None:
             first = (depth_p, pid_p)
         if depth_only:
@@ -613,13 +633,14 @@ def rasterize_pairs_fused_plain(pairs: PairedTriangles, height: int,
                                 tile_h: int = 32, tile_w: int = 128,
                                 texture_size: int = 256,
                                 need_uv: bool = True, has_combo: bool = True,
-                                combo_const: float = 0.0):
+                                combo_const: float = 0.0,
+                                sub_rows: int = 8, y_row: int = -1):
     """Plain PyTorch version of ``rasterize_pairs_fused`` (any device):
     the plain visibility pass, one gather of the winner's record row per
     pixel, and the kernel's epilogue in the kernel's operation order."""
     dev = pairs.records.device
     depth, pid = _plain_visibility(pairs, height, width, init_depth, tile_h,
-                                   tile_w)
+                                   tile_w, sub_rows=sub_rows, y_row=y_row)
     covered = pid >= 0
     rec = pairs.records[pid.clamp_min(0)]  # (H, W, rec_w)
     rec = torch.where(covered[..., None], rec, torch.zeros_like(rec))
@@ -712,17 +733,25 @@ def strip_walk_hits(pairs: PairedTriangles, height: int, width: int,
     -1e-5 * (|a| x1 + |b| y1 + |c|) at the corner of the warp's pixel-centre
     rectangle (all tile columns x the warp's rows) that its signs pick: the
     kernel's test in the kernel's fp32 operation order."""
-    n_ty, n_tx = height // tile_h, width // tile_w
+    tiles, pids = _tile_pair_list(pairs, height // tile_h, width // tile_w,
+                                  tile_h, tile_w)
+    return tiles, pids, _walk_hits(pairs, tiles, pids, width, tile_h,
+                                   tile_w, sub_rows, y_row)
+
+
+def _walk_hits(pairs: PairedTriangles, tiles, pids, width: int, tile_h: int,
+               tile_w: int, sub_rows: int, y_row: int) -> torch.Tensor:
+    """The (N, 8) warp hits of ``strip_walk_hits`` for given entries."""
+    n_tx = width // tile_w
     dev = pairs.records.device
     f32 = torch.float32
-    tiles, pids = _tile_pair_list(pairs, n_ty, n_tx, tile_h, tile_w)
     run = 32 * _pixels_per_thread(tile_h, tile_w)
     tile_px = tile_h * tile_w
     first = torch.arange(8, device=dev) * run
     owns = first < tile_px
     last = torch.clamp(first + run, max=tile_px) - 1
     if y_row < 0:
-        return tiles, pids, owns[None, :].expand(tiles.shape[0], -1)
+        return owns[None, :].expand(tiles.shape[0], -1)
     ty = (tiles // n_tx)[:, None] * tile_h
     r0 = (ty + (first // tile_w)[None, :]).to(f32)
     r1 = (ty + (torch.maximum(last, first) // tile_w)[None, :]).to(f32)
@@ -742,7 +771,7 @@ def strip_walk_hits(pairs: PairedTriangles, height: int, width: int,
         e = x * a + y * b + c
         s = torch.abs(a) * rx1 + torch.abs(b) * ry1 + torch.abs(c)
         hit = hit & ~(e < -1e-5 * s)
-    return tiles, pids, hit
+    return hit
 
 
 def strip_walk_tests(pairs: PairedTriangles, height: int, width: int,
@@ -866,13 +895,14 @@ def rasterize_pairs(
     crowded tile over up to ``SPLIT_PARTS`` blocks (``split_parts_of``)
     and merges them exactly (``rasterize_pairs_split_plain``).
     Tensors on the card go to kernel ``pair_raster``; CPU tensors (or
-    ``backend="torch"``) to ``rasterize_pairs_plain``, which tests every
-    pair.
+    ``backend="torch"``) to ``rasterize_pairs_plain``, which tests the
+    pairs the walk tests.
     """
     _check_span(pairs, sub_rows, y_row)
     if not _use_kernel(pairs.records, backend):
         return rasterize_pairs_plain(pairs, height, width, init_depth,
-                                     tile_h, tile_w, depth_only)
+                                     tile_h, tile_w, depth_only, sub_rows,
+                                     y_row)
     ptrs, geom = _check_pairs(pairs, height, width, tile_h, tile_w, 12,
                               init_depth)
     _check_staged(pairs)
@@ -924,12 +954,11 @@ def rasterize_pairs_fused(
     float32 planes (uv/lod/duv/dpos planes are zeros when ``need_uv`` is
     off). ``y_row`` >= 0 names the record column holding the packed strip
     span that ``build_pairs(ysort_sub_rows=sub_rows)`` appends; the kernel
-    then skips, per warp, the pairs whose span misses the warp's rows
-    (exact: coverage lies inside the binning bbox) or one of whose edges
-    excludes the warp's pixels (exact in fp32, see ``strip_walk_hits``).
+    then skips, per warp, the pairs whose span misses the warp's rows or
+    one of whose edges excludes the warp's pixels (``strip_walk_hits``).
     Tensors on the card go to kernel ``pair_raster_fused``; CPU tensors (or
     ``backend="torch"``) to ``rasterize_pairs_fused_plain``, which tests
-    every pair.
+    the pairs the walk tests.
     """
     min_w = 12 + fused_extra_width(need_uv, has_combo)
     assert pairs.records.shape[1] >= min_w, (
@@ -938,7 +967,7 @@ def rasterize_pairs_fused(
     if not _use_kernel(pairs.records, backend):
         return rasterize_pairs_fused_plain(
             pairs, height, width, init_depth, tile_h, tile_w, texture_size,
-            need_uv, has_combo, combo_const)
+            need_uv, has_combo, combo_const, sub_rows, y_row)
     ptrs, geom = _check_pairs(pairs, height, width, tile_h, tile_w, min_w,
                               init_depth)
     _check_staged(pairs)

@@ -13,9 +13,12 @@ their own pool. Mip generation is 2x2 box filtering (the practical
 equivalent of the reference's repeated vkCmdBlitImage linear-filter chain).
 
 This module holds the NumPy atlas packers (the scene build packs on the
-host and uploads once) and the mip-0 / fixed-level packed samplers. The
-trilinear and mip-pair samplers serve textured scenes and are not ported
-yet (ROADMAP.md A4).
+host and uploads once) and the samplers: the plain RGBA atlas (bilinear
+at a level, trilinear), the neighborhood-packed atlases (one row fetch a
+tap; the mip-pair layout gives a whole trilinear sample in one fetch) and
+the cubemap tap at a per-pixel lod. Every sampler is an indexing gather
+in PyTorch with the JAX package's operation order, so its results equal
+the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -44,6 +47,29 @@ def round_bf16(a: np.ndarray) -> np.ndarray:
     return t.to(torch.bfloat16).to(torch.float32).numpy()
 
 
+def build_mip_atlas(images: np.ndarray) -> np.ndarray:
+    """Pack (N, S, S, C) base images into (N, S, 2S, C) mip atlases.
+
+    Box-filter downsampling; S must be a power of two.
+    """
+    images = np.asarray(images, np.float32)
+    n, s, s2, c = images.shape
+    assert s == s2 and (s & (s - 1)) == 0, "textures must be square pow2"
+    atlas = np.zeros((n, s, 2 * s, c), np.float32)
+    atlas[:, :, :s] = images
+    level = images
+    size = s
+    lv = 1
+    while size > 1:
+        level = level.reshape(n, size // 2, 2, size // 2, 2, c).mean(
+            axis=(2, 4))
+        size //= 2
+        off = mip_offset_x(lv, s)
+        atlas[:, :size, off : off + size] = level
+        lv += 1
+    return atlas
+
+
 def _mip_offsets_table(base: int, device) -> torch.Tensor:
     return torch.tensor(
         [mip_offset_x(l, base) for l in range(mip_count(base))],
@@ -68,19 +94,93 @@ def _packed_base_channels(c_all: int) -> int:
     return c_all // 4
 
 
+def _int(x, dev):
+    return torch.as_tensor(x, dtype=torch.int32, device=dev)
+
+
+def _clip_int(i, hi):
+    """``jnp.clip(i, 0, hi)`` for int32 tensors with a tensor bound."""
+    return torch.minimum(torch.clamp_min(i, 0), hi)
+
+
+def _level_size(base: int, lvl_f: torch.Tensor) -> torch.Tensor:
+    """Texel count of a mip level: max(floor(base / 2^l + 0.5), 1)."""
+    size_f = torch.tensor(float(base), dtype=torch.float32,
+                          device=lvl_f.device) / torch.exp2(lvl_f)
+    return torch.clamp_min(torch.floor(size_f + 0.5), 1.0)
+
+
+def _gather_texel(atlas: torch.Tensor, layer, ix, iy):
+    """atlas (N, H, WA, C); integer indices broadcast to pixel shape,
+    flattened to a 1-D row gather."""
+    n, h, w, c = atlas.shape
+    flat = atlas.reshape(n * h * w, c)
+    idx = (layer * h + iy) * w + ix
+    return flat[idx.long()]
+
+
+def sample_bilinear_level(atlas: torch.Tensor, layer, uv, level, base: int):
+    """One bilinear tap of a plain (N, S, 2S, C) mip atlas at an integer
+    mip ``level`` (per pixel), GL repeat addressing. Returns (..., C)."""
+    dev = uv.device
+    lvl = _int(level, dev)
+    size_f = _level_size(base, lvl.to(torch.float32))
+    offs = _mip_offsets_table(base, dev)[
+        torch.clamp(lvl, 0, mip_count(base) - 1).long()]
+
+    u = uv[..., 0] * size_f - 0.5
+    v = uv[..., 1] * size_f - 0.5
+    u0 = torch.floor(u)
+    v0 = torch.floor(v)
+    fu = (u - u0)[..., None]
+    fv = (v - v0)[..., None]
+    size_i = size_f.to(torch.int32)
+
+    def wrap(i):
+        return torch.remainder(i.to(torch.int32), size_i)
+
+    x0 = wrap(u0)
+    x1 = wrap(u0 + 1)
+    y0 = wrap(v0)
+    y1 = wrap(v0 + 1)
+    ox = offs.to(torch.int32)
+    layer = _int(layer, dev)
+    t00 = _gather_texel(atlas, layer, x0 + ox, y0).to(torch.float32)
+    t10 = _gather_texel(atlas, layer, x1 + ox, y0).to(torch.float32)
+    t01 = _gather_texel(atlas, layer, x0 + ox, y1).to(torch.float32)
+    t11 = _gather_texel(atlas, layer, x1 + ox, y1).to(torch.float32)
+    return (t00 * (1 - fu) * (1 - fv) + t10 * fu * (1 - fv)
+            + t01 * (1 - fu) * fv + t11 * fu * fv)
+
+
+def _lod_split(lod, base: int, dev):
+    """(l0, frac (..., 1)) of a lod clipped to [0, mips - 1]."""
+    lod = torch.clamp(torch.as_tensor(lod, dtype=torch.float32, device=dev),
+                      0.0, mip_count(base) - 1.0)
+    l0 = torch.floor(lod)
+    return l0, (lod - l0)[..., None]
+
+
+def sample_trilinear(atlas: torch.Tensor, layer, uv, lod, base: int):
+    """textureLod with trilinear filtering on a plain mip atlas; lod is a
+    per-pixel float."""
+    l0, frac = _lod_split(lod, base, uv.device)
+    a = sample_bilinear_level(atlas, layer, uv, l0.to(torch.int32), base)
+    b = sample_bilinear_level(
+        atlas, layer, uv,
+        torch.clamp_max(l0 + 1, mip_count(base) - 1).to(torch.int32), base)
+    return a * (1 - frac) + b * frac
+
+
 def sample_base(atlas: torch.Tensor, layer, uv, base: int,
                 quad: bool = False):
     """Bilinear tap at mip 0 (``texture()`` without explicit derivatives,
     as the GBuffer pass effectively uses for magnified textures)."""
+    zero = torch.zeros((), dtype=torch.int32, device=uv.device)
     if quad or _is_packed(atlas):
-        return sample_bilinear_level_packed(
-            atlas, layer, uv,
-            torch.zeros((), dtype=torch.int32, device=uv.device), base,
-            quad=quad,
-        )
-    raise NotImplementedError(
-        "unpacked RGBA atlases are not ported yet (ROADMAP.md A4: "
-        "ops/texture.py samplers)")
+        return sample_bilinear_level_packed(atlas, layer, uv, zero, base,
+                                            quad=quad)
+    return sample_bilinear_level(atlas, layer, uv, zero, base)
 
 
 # ------------------------------------------------------------------- cubemap
@@ -116,6 +216,30 @@ def cube_direction_to_face_uv(d):
     u = (sc / ma + 1.0) * 0.5
     v = (tc / ma + 1.0) * 0.5
     return face, torch.stack([u, v], -1)
+
+
+def sample_cubemap_lod(cube_atlas: torch.Tensor, cube_index, direction, lod,
+                       base: int, quad: bool = False):
+    """textureLod(samplerCube, dir, lod).
+
+    cube_atlas: (6 * n_cubemaps, S, 2S, C) - faces are consecutive layers
+    (+X, -X, +Y, -Y, +Z, -Z). Face-edge filtering is clamped per face
+    (seam-approximate): uv is clamped half a texel of the lod's level
+    inside the face."""
+    dev = direction.device
+    face, uv = cube_direction_to_face_uv(direction)
+    lod = torch.as_tensor(lod, dtype=torch.float32, device=dev)
+    size_f = torch.clamp_min(
+        torch.tensor(float(base), dtype=torch.float32, device=dev)
+        / torch.exp2(torch.clamp(torch.floor(lod), 0, mip_count(base) - 1)),
+        1.0)
+    half = (0.5 / size_f)[..., None]
+    uv = torch.minimum(torch.maximum(uv, half), 1.0 - half)
+    layer = _int(cube_index, dev) * 6 + face
+    if quad or _is_packed(cube_atlas):
+        return sample_trilinear_packed(cube_atlas, layer, uv, lod, base,
+                                       quad=quad)
+    return sample_trilinear(cube_atlas, layer, uv, lod, base)
 
 
 # ------------------------------------------------- neighborhood-packed atlas
@@ -249,15 +373,6 @@ def build_quad_packed_atlas_host(images, bf16: bool = True) -> np.ndarray:
         build_quad_packed_atlas(np.asarray(images, np.float32)), bf16)
 
 
-def _gather_texel(atlas: torch.Tensor, layer, ix, iy):
-    """atlas (N, H, WA, C); integer indices broadcast to pixel shape,
-    flattened to a 1-D row gather."""
-    n, h, w, c = atlas.shape
-    flat = atlas.reshape(n * h * w, c)
-    idx = (layer * h + iy) * w + ix
-    return flat[idx.long()]
-
-
 def _quad_gather(atlas_q: torch.Tensor, layer, ix, iy, c4: int):
     """Fetch the 2x2-packed group for global atlas column ``ix`` from a
     quad-packed atlas: one row gather + 2-level binary select."""
@@ -284,10 +399,8 @@ def sample_bilinear_level_packed(atlas4: torch.Tensor, layer, uv, level,
     c4 = atlas4.shape[-1] // 4 if quad else atlas4.shape[-1]
     c = _packed_base_channels(c4)
     dev = uv.device
-    lvl = torch.as_tensor(level, dtype=torch.int32, device=dev)
-    size_f = torch.tensor(float(base), dtype=torch.float32, device=dev) \
-        / torch.exp2(lvl.to(torch.float32))
-    size_f = torch.clamp_min(torch.floor(size_f + 0.5), 1.0)
+    lvl = _int(level, dev)
+    size_f = _level_size(base, lvl.to(torch.float32))
     offs = _mip_offsets_table(base, dev)[
         torch.clamp(lvl, 0, mip_count(base) - 1).long()]
 
@@ -298,14 +411,13 @@ def sample_bilinear_level_packed(atlas4: torch.Tensor, layer, uv, level,
     u0 = torch.floor(u)
     v0 = torch.floor(v)
     size_i = size_f.to(torch.int32)
-    x0 = torch.minimum(torch.clamp_min(u0.to(torch.int32), 0), size_i - 1)
-    y0 = torch.minimum(torch.clamp_min(v0.to(torch.int32), 0), size_i - 1)
+    x0 = _clip_int(u0.to(torch.int32), size_i - 1)
+    y0 = _clip_int(v0.to(torch.int32), size_i - 1)
     fu = torch.clamp(u - x0.to(torch.float32), 0.0, 1.0)[..., None]
     fv = torch.clamp(v - y0.to(torch.float32), 0.0, 1.0)[..., None]
 
     ox = offs.to(torch.int32)
-    layer = torch.as_tensor(layer, dtype=torch.int32, device=dev) \
-        .broadcast_to(x0.shape)
+    layer = _int(layer, dev).broadcast_to(x0.shape)
     if quad:
         texel = _quad_gather(atlas4, layer, x0 + ox, y0, c4)  # (..., 4c)
     else:
@@ -317,3 +429,90 @@ def sample_bilinear_level_packed(atlas4: torch.Tensor, layer, uv, level,
     top = t00 * (1 - fu) + t10 * fu
     bot = t01 * (1 - fu) + t11 * fu
     return top * (1 - fv) + bot * fv
+
+
+def sample_trilinear_pair(atlas13: torch.Tensor, layer, uv, lod, base: int):
+    """Trilinear from a mip-pair atlas: ONE row fetch per pixel.
+
+    Matches sample_trilinear (repeat addressing, clamp at mip borders,
+    linear mip blend); the level-(l+1) 2x2 window is selected out of the
+    stored 3x3 with binary row/column selects. The fetched row stays in
+    the atlas dtype (bf16); each 4-channel group is cast to f32 on its own,
+    which is exact."""
+    dev = uv.device
+    c = atlas13.shape[-1] // 13
+    l0, frac = _lod_split(lod, base, dev)
+    lvl = l0.to(torch.int32)
+    size_f = _level_size(base, l0)
+    offs = _mip_offsets_table(base, dev)[
+        torch.clamp(lvl, 0, mip_count(base) - 1).long()]
+
+    uw = uv[..., 0] - torch.floor(uv[..., 0])
+    vw = uv[..., 1] - torch.floor(uv[..., 1])
+    u = uw * size_f - 0.5
+    v = vw * size_f - 0.5
+    size_i = size_f.to(torch.int32)
+    x0 = _clip_int(torch.floor(u).to(torch.int32), size_i - 1)
+    y0 = _clip_int(torch.floor(v).to(torch.int32), size_i - 1)
+    fu = torch.clamp(u - x0.to(torch.float32), 0.0, 1.0)[..., None]
+    fv = torch.clamp(v - y0.to(torch.float32), 0.0, 1.0)[..., None]
+
+    layer = _int(layer, dev).broadcast_to(x0.shape)
+    row = _gather_texel(atlas13, layer, x0 + offs.to(torch.int32), y0)
+
+    def grp(i):
+        return row[..., i * c : (i + 1) * c]
+
+    def grpf(i):
+        return grp(i).to(torch.float32)
+
+    lo_top = grpf(0) * (1 - fu) + grpf(1) * fu
+    lo_bot = grpf(2) * (1 - fu) + grpf(3) * fu
+    lo = lo_top * (1 - fv) + lo_bot * fv
+
+    # Level l0+1 bilinear out of the 3x3 (groups 4..12, row-major dy, dx).
+    s2 = torch.clamp_min(size_f * 0.5, 1.0)
+    s2_i = s2.to(torch.int32)
+    u2 = uw * s2 - 0.5
+    v2 = vw * s2 - 0.5
+    x20 = _clip_int(torch.floor(u2).to(torch.int32), s2_i - 1)
+    y20 = _clip_int(torch.floor(v2).to(torch.int32), s2_i - 1)
+    fu2 = torch.clamp(u2 - x20.to(torch.float32), 0.0, 1.0)[..., None]
+    fv2 = torch.clamp(v2 - y20.to(torch.float32), 0.0, 1.0)[..., None]
+    half_x = torch.div(x0, 2, rounding_mode="floor")
+    half_y = torch.div(y0, 2, rounding_mode="floor")
+    r0 = (torch.clamp(x20 - (half_x - 1), 0, 1) == 0)[..., None]
+    q0 = (torch.clamp(y20 - (half_y - 1), 0, 1) == 0)[..., None]
+
+    def nrow(dy):
+        a = torch.where(q0, grpf(4 + dy * 3), grpf(7 + dy * 3))
+        b = torch.where(q0, grpf(5 + dy * 3), grpf(8 + dy * 3))
+        cc = torch.where(q0, grpf(6 + dy * 3), grpf(9 + dy * 3))
+        return a, b, cc
+
+    a0, b0, c0 = nrow(0)
+    a1, b1, c1 = nrow(1)
+    t00h = torch.where(r0, a0, b0)
+    t10h = torch.where(r0, b0, c0)
+    t01h = torch.where(r0, a1, b1)
+    t11h = torch.where(r0, b1, c1)
+    hi_top = t00h * (1 - fu2) + t10h * fu2
+    hi_bot = t01h * (1 - fu2) + t11h * fu2
+    hi = hi_top * (1 - fv2) + hi_bot * fv2
+    return lo * (1 - frac) + hi * frac
+
+
+def sample_trilinear_packed(atlas4: torch.Tensor, layer, uv, lod, base: int,
+                            quad: bool = False):
+    """Trilinear from a packed atlas: one row fetch (mip-pair layout) or
+    two (2x2 / quad layouts)."""
+    if not quad and atlas4.shape[-1] % 13 == 0:
+        return sample_trilinear_pair(atlas4, layer, uv, lod, base)
+    l0, frac = _lod_split(lod, base, uv.device)
+    a = sample_bilinear_level_packed(atlas4, layer, uv, l0.to(torch.int32),
+                                     base, quad=quad)
+    b = sample_bilinear_level_packed(
+        atlas4, layer, uv,
+        torch.clamp_max(l0 + 1, mip_count(base) - 1).to(torch.int32), base,
+        quad=quad)
+    return a * (1 - frac) + b * frac

@@ -6,19 +6,25 @@ Pass order (matching the reference's hard-coded command order):
   2. DeferredScene -> 6-target GBuffer                      :3417-3480
   3. (depth copy GBuffer->main = reusing the depth tensor)  :3482-3506
   4. Main pass: DeferredLighting fullscreen                 :3536-3539
+     forward objects (z-tested against scene depth)         :3545-3579
      skydome (LESS_OR_EQUAL)                                :3682-3691
+     (skydome skipped when debug view != 0)
 
 This is the slice of the JAX package's ``passes/frame.py`` that a
-full-frame, single-device deferred frame of an untextured scene runs:
-vertex stage -> shadow raster (kernel ``pair_raster``) -> fused GBuffer
-raster (``pair_raster_fused``) -> constant-slot materials -> 25-tap PCF
-(``pcf_taps``; or an opt-in backend: ``pcf_window``, the window tables of
-``pcf_window_table`` / ``pcf_window2d_table``, or a plain filter) ->
-directional light + point lights culled to screen tiles (``point_lights``;
-or the plain loop / tiled loop) -> constant-lod cube reflection ->
-analytic skydome (``bilinear_tap``). Everything else the JAX package's
-frame can do raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item; nothing is silently served by another path.
+full-frame, single-device frame runs: vertex stage -> shadow raster
+(kernel ``pair_raster``) -> fused GBuffer raster (``pair_raster_fused``)
+-> materials (per-combo constants + one mip-pair atlas fetch of the
+varying channels) -> 25-tap PCF (``pcf_taps``; or an opt-in backend:
+``pcf_window``, the window tables of ``pcf_window_table`` /
+``pcf_window2d_table``, or a plain filter) -> directional light + point
+lights culled to screen tiles (``point_lights``; or the plain loop /
+tiled loop) -> cube reflection (constant-lod table, half-resolution
+mip-pair cube or quad atlas) -> forward objects, z-tested against the
+GBuffer depth (``pair_raster_fused`` with an initial depth, their own
+light cull and PCF) -> analytic skydome (``bilinear_tap``), or one of the
+debug views 1-9 instead of the lit frame. Everything else the JAX
+package's frame can do raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item; nothing is silently served by another path.
 
 Every op is issued on the current CUDA stream in order: the stream is the
 dependency graph.
@@ -30,6 +36,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from zeldaengine_tpu_torch.config import EngineConfig
 from zeldaengine_tpu_torch.math.color import gamma_correct
@@ -55,9 +62,11 @@ from zeldaengine_tpu_torch.ops.shadow import (
     compute_pcf_window_roll,
     compute_shadow_coord,
 )
+from zeldaengine_tpu_torch.ops.texture import sample_cubemap_lod
 from zeldaengine_tpu_torch.ops.window_tap import sample_base_window
 from zeldaengine_tpu_torch.passes.gbuffer import (
     GBuffer,
+    SurfaceAttributes,
     pack_gbuffer,
     surface_attributes_from_planes,
 )
@@ -79,16 +88,8 @@ def unported_reasons(scene: GpuScene, view, meta: SceneMeta,
         if cond:
             why.append(f"{what} is not ported yet (ROADMAP.md {item})")
 
-    no(meta.has_forward, "the forward pass (meta.has_forward)",
-       "A5: passes/frame.py forward_shade")
     no(meta.has_meshlets, "meshlet culling (meta.has_meshlets)",
        "A4: ops/culling.py")
-    no(meta.tex_channels != (),
-       f"textured materials (meta.tex_channels={meta.tex_channels!r})",
-       "A4: ops/texture.py samplers")
-    no(scene.cube_const is None,
-       "variable-lod cubemap reflection (scene.cube_const is None)",
-       "A4: ops/texture.py samplers")
     no(config.env_merge, "env_merge", "A4: ops/envtap.py")
     no(config.wireframe, "wireframe", "A5: passes/frame.py _apply_wireframe")
     no(config.skydome_mode != "analytic",
@@ -109,9 +110,6 @@ def unported_reasons(scene: GpuScene, view, meta: SceneMeta,
        "A4: ops/lighting.py::reflection_color half")
     no(config.ablate != "", f"ablate={config.ablate!r}",
        "A5: passes/frame.py ablations")
-    no(int(view.debug_view) != 0,
-       f"debug_view={int(view.debug_view)}",
-       "A5: passes/frame.py _debug_switch / _gbuffer_vis")
     no(not full_frame, "row bands (full_frame=False)",
        "A8: parallel/tiles.py")
     no(config.pcf_backend not in _PCF_BACKENDS,
@@ -174,11 +172,11 @@ def _span_padded_rows(setup, height: int, padded: int):
 
 
 def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
-                      meta=None):
+                      meta=None, init_depth=None):
     """Fused visibility raster + attribute interpolation: returns
     (depth, tid, attr planes (ATTR_CH, H, W), the pair stream). The frame is
     padded to whole tiles (1080 rows -> 1088 at 64-row tiles) and cropped
-    back."""
+    back; ``init_depth`` (H, W) is padded with the far plane."""
     need_uv, need_combo, combo_const = (
         _fused_flags(meta) if meta is not None else (True, True, 0.0))
     n_extra = fused_extra_width(need_uv, need_combo)
@@ -203,8 +201,11 @@ def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
               y_row=(12 + n_extra + has_z) if ysr else -1,
               need_uv=need_uv, has_combo=need_combo,
               combo_const=combo_const)
+    if init_depth is not None and (ph != height or pw != width):
+        init_depth = F.pad(init_depth, (0, pw - width, 0, ph - height),
+                           value=1.0)
     depth, tid, planes = rasterize_pairs_fused(
-        pairs, ph, pw, backend=config.raster, **kw)
+        pairs, ph, pw, init_depth=init_depth, backend=config.raster, **kw)
     return (depth[:height, :width], tid[:height, :width],
             planes[:, :height, :width], pairs)
 
@@ -286,16 +287,127 @@ def _shadow_factor(shadowmap, world_pos, view, config: EngineConfig,
     return compute_pcf(shadowmap, sc, **kw)
 
 
+def _raw_factor(shadowmap, world_pos, view, config: EngineConfig,
+                shadow_factor):
+    """The shadow factor the raw-factor debug views (8, and 9's cell)
+    show. The tap kernel's backends ("auto", "vmem") leave uncovered pixels
+    at 1.0 (sky overwrites them in the lit frame), so the factor is
+    recomputed ungated through the exact "packed" filter, as the JAX
+    package does for its tap kernel."""
+    if config.pcf_backend not in ("auto", "vmem"):
+        return shadow_factor
+    return _shadow_factor(shadowmap, world_pos, view,
+                          config.replace(pcf_backend="packed"))
+
+
+def _debug_switch(debug_view: int, final, attrs: SurfaceAttributes,
+                  shadow_factor, reflection, case9=None,
+                  shadow_factor_vis=None):
+    """The SPEC_CONSTANTS switch of Base.frag:119-143 (forward) and
+    BaseLighting.frag:237-253 (deferred when ``case9`` is given).
+    ``debug_view`` is a host int (clipped to [0, 9]); only the chosen view
+    is computed. ``shadow_factor_vis`` / ``case9`` are thunks."""
+
+    def c(x):
+        return (x[..., None] if x.ndim == 2 else x).broadcast_to(final.shape)
+
+    dv = min(max(int(debug_view), 0), 9)
+    if dv == 0:
+        return final
+    if dv == 8:
+        return c(shadow_factor_vis() if shadow_factor_vis is not None
+                 else shadow_factor)
+    if dv == 9:
+        return case9() if case9 is not None else final
+    return c((None, attrs.base_color, attrs.metallic, attrs.roughness,
+              attrs.normal, attrs.ao, attrs.vertex_color, reflection)[dv])
+
+
+def _gbuffer_vis(gbuf: GBuffer, final, view, config: EngineConfig,
+                 cube_atlas, shadow_factor):
+    """BaseLighting.frag:42-145 GBufferVis - 3x3 contact sheet of the
+    GBuffer (basecolor/metallic/roughness | normal/-/AO | black/refl/shadow),
+    honoring the editor's reserved right/bottom bars via viewportInfo. The
+    shadow cell shows the frame's factor, warped by the same contact-sheet
+    sampling."""
+    height, width = gbuf.depth.shape
+    dev = final.device
+    yy = (torch.arange(height, dtype=torch.float32, device=dev)[:, None]
+          + 0.5) / height
+    xx = (torch.arange(width, dtype=torch.float32, device=dev)[None, :]
+          + 0.5) / width
+    uv = torch.stack([xx.broadcast_to(height, width),
+                      yy.broadcast_to(height, width)], -1)
+    empty = view.viewport[2:4] / view.viewport[0:2]
+    tile_uv = uv * 3.0 / (1.0 - empty)
+    ix = torch.clamp((tile_uv[..., 0] * width).to(torch.int32), 0, width - 1)
+    iy = torch.clamp((tile_uv[..., 1] * height).to(torch.int32), 0,
+                     height - 1)
+    idx = (iy * width + ix).long()
+
+    def sample(img):
+        return img.reshape(height * width, -1)[idx]
+
+    ga = sample(gbuf.gbuffer_a)
+    gb = sample(gbuf.gbuffer_b)
+    gc = sample(gbuf.gbuffer_c)
+    gd = sample(gbuf.gbuffer_d)
+
+    base_color = gc[..., :3]
+    metallic = pbr.saturate(gb[..., 0])
+    roughness = torch.clamp_min(pbr.saturate(gb[..., 2]), 0.01)
+    normal = pbr.normalize(ga[..., :3] * 2.0 - 1.0)
+    ao = pbr.saturate(gc[..., 3])
+    p = gd[..., :3]
+    v = pbr.normalize(view.camera_pos - p)
+
+    step = (1.0 - empty) / 3.0
+    x = uv[..., 0]
+    y = uv[..., 1]
+    result = final
+    white = torch.ones_like(final)
+
+    def put(i, j, img):
+        nonlocal result
+        in_cell = ((x < step[0] * (i + 1)) & (x >= step[0] * i)
+                   & (y < step[1] * (j + 1)) & (y >= step[1] * j))
+        gutter = ((x > step[0] * (i + 1.0 - empty[0]))
+                  | (y > step[1] * (j + 1.0 - empty[1])))
+        val = torch.where(gutter[..., None], white, img)
+        result = torch.where(in_cell[..., None], val, result)
+
+    def c(x1):
+        return x1[..., None].broadcast_to(final.shape)
+
+    put(0, 0, gamma_correct(base_color))
+    put(1, 0, c(metallic))
+    put(2, 0, c(roughness))
+    put(0, 1, normal)
+    put(2, 1, c(ao))
+    put(0, 2, torch.zeros_like(final))
+    # (1, 2): raw mip-0 reflection.
+    r = pbr.refract(v, normal, 1.0 / 1.52)
+    refl = sample_cubemap_lod(
+        cube_atlas, torch.zeros(x.shape, dtype=torch.int32, device=dev), r,
+        torch.zeros(x.shape, dtype=torch.float32, device=dev),
+        config.cubemap_size, quad=cube_atlas.shape[-1] % 13 != 0,
+    )[..., :3] * 10.0
+    put(1, 2, refl)
+    put(2, 2, c(sample(shadow_factor[..., None])[..., 0]))
+    return result
+
+
 def resolve_lighting(gbuf: GBuffer, shadowmap, scene: GpuScene, view,
                      config: EngineConfig, tiled_points=None,
                      pallas_points=None):
-    """BaseLighting.frag main(): unpack GBuffer, light (debug view 0).
+    """BaseLighting.frag main(): unpack GBuffer, light, debug switch.
     Returns (color (H, W, 3), shadow factor (H, W))."""
     base_color = gbuf.gbuffer_c[..., :3]
     metallic = pbr.saturate(gbuf.gbuffer_b[..., 0])
     roughness = torch.clamp_min(pbr.saturate(gbuf.gbuffer_b[..., 2]), 0.01)
     normal = gbuf.gbuffer_a[..., :3] * 2.0 - 1.0
     ao = pbr.saturate(gbuf.gbuffer_c[..., 3])
+    emissive = gbuf.scene_color[..., :3]
     mask = gbuf.scene_color[..., 3]
     world_pos = gbuf.gbuffer_d[..., :3]
 
@@ -307,7 +419,58 @@ def resolve_lighting(gbuf: GBuffer, shadowmap, scene: GpuScene, view,
         cube_pair1=scene.cube_pair1, cube_const=scene.cube_const,
         tiled_points=tiled_points, pallas_points=pallas_points,
     )
-    return gamma_correct(lit["final"] * mask[..., None]), shadow_factor
+    final = gamma_correct(lit["final"] * mask[..., None])
+    if int(view.debug_view) == 0:
+        return final, shadow_factor
+
+    def sf_vis():
+        return _raw_factor(shadowmap, world_pos, view, config, shadow_factor)
+
+    attrs = SurfaceAttributes(
+        covered=gbuf.depth < 1.0,
+        world_pos=world_pos,
+        normal=pbr.normalize(normal),
+        # The fullscreen rect's vertex colors are not reconstructible per
+        # pixel; debug case 6 shows zeros, as in the JAX package.
+        vertex_color=torch.zeros_like(base_color),
+        base_color=gamma_correct(base_color),  # case 1 gamma-corrects
+        metallic=metallic,
+        roughness=roughness,
+        ao=ao,
+        emissive=emissive,
+        mask=mask,
+    )
+    color = _debug_switch(
+        view.debug_view, final, attrs, shadow_factor, lit["reflection"],
+        case9=lambda: _gbuffer_vis(gbuf, final, view, config,
+                                   scene.cube_atlas, sf_vis()),
+        shadow_factor_vis=sf_vis)
+    return color, shadow_factor
+
+
+def forward_shade(attrs: SurfaceAttributes, shadowmap, scene: GpuScene,
+                  view, config: EngineConfig, tiled_points=None,
+                  pallas_points=None):
+    """Base.frag main(): forward PBR with the case-0 ShadowFactor multiply
+    (after the gamma curve, as the reference's forward shader does), or
+    the chosen debug view (case 9 shows the lit forward pixel)."""
+    shadow_factor = _shadow_factor(shadowmap, attrs.world_pos, view, config,
+                                   valid=attrs.covered)
+    lit = shade_pixels(
+        attrs.base_color, attrs.metallic, attrs.roughness, attrs.normal,
+        attrs.ao, attrs.world_pos, shadow_factor, view,
+        scene.cube_atlas, config.cubemap_size, tiled_points=tiled_points,
+        cube_pair1=scene.cube_pair1, cube_const=scene.cube_const,
+        pallas_points=pallas_points,
+    )
+    final = gamma_correct(lit["final"]) * shadow_factor[..., None]
+
+    def sf_vis():
+        return _raw_factor(shadowmap, attrs.world_pos, view, config,
+                           shadow_factor)
+
+    return _debug_switch(view.debug_view, final, attrs, shadow_factor,
+                         lit["reflection"], shadow_factor_vis=sf_vis)
 
 
 def _mat_vec(m, v):
@@ -448,18 +611,31 @@ def render_rows(
                  and width % config.light_tile_w == 0)
     light_drops = torch.zeros((), dtype=torch.int32, device=dev)
 
-    def culled_lights(world_pos, covered, tile_h, tile_w):
+    def culled_lights(attrs):
+        """(tiled_points, pallas_points) of one pass: the point lights
+        culled against that pass's own visible surface."""
         nonlocal light_drops
+        if use_kernel_points:
+            tile_h, tile_w = config.point_block_h, 128
+        elif use_tiled:
+            tile_h, tile_w = config.light_tile_h, config.light_tile_w
+        else:
+            return None, None
         tile_idx, tile_cnt, drops = cull_point_lights_tiled(
             view.point_lights, int(view.lights_count[1]), view, width,
             height, tile_h, tile_w, config.max_tile_lights,
-            vp_h=config.height, world_pos=world_pos, covered=covered)
+            vp_h=config.height, world_pos=attrs.world_pos,
+            covered=attrs.covered)
         light_drops = light_drops + drops
-        return tile_idx, tile_cnt
+        if use_kernel_points:
+            return None, (tile_idx, tile_cnt, tile_h, config.raster)
+        return (tile_idx, tile_cnt, tile_h, tile_w), None
 
     # ---- vertex stage (Base.vert / BaseInstanced.vert / Shadowmap*.vert)
-    world = apply_mat4_point(view.model, scene.pair_pos)
-    n1 = apply_mat4_point(view.model, pbr.normalize(scene.pair_nrm))
+    # Positions and normals through the model matrix in one transform.
+    n_p = scene.pair_pos.shape[0]
+    world, n1 = apply_mat4_point(view.model, torch.cat(
+        [scene.pair_pos, pbr.normalize(scene.pair_nrm)])).split(n_p)
     if scene.rot_table.shape[0] <= 1:
         # No instance rotations anywhere (rot_table is just the identity
         # row): the per-pair (P, 3, 3) gather + product are the identity.
@@ -517,16 +693,7 @@ def render_rows(
         gbuf = pack_gbuffer(attrs_d, depth_d)
         # ---- 4a. deferred lighting (fullscreen, no depth test); the
         # lights are culled against the GBuffer's own visible surface.
-        tiled_points = pallas_points = None
-        if use_kernel_points:
-            pallas_points = culled_lights(
-                attrs_d.world_pos, attrs_d.covered, config.point_block_h,
-                128) + (config.point_block_h, config.raster)
-        elif use_tiled:
-            tiled_points = culled_lights(
-                attrs_d.world_pos, attrs_d.covered, config.light_tile_h,
-                config.light_tile_w) + (config.light_tile_h,
-                                        config.light_tile_w)
+        tiled_points, pallas_points = culled_lights(attrs_d)
         color, shadow_factor = resolve_lighting(
             gbuf, shadowmap, scene, view, config,
             tiled_points=tiled_points, pallas_points=pallas_points)
@@ -539,11 +706,40 @@ def render_rows(
                            device=dev)
         color = torch.zeros((height, width, 3), dtype=torch.float32,
                             device=dev)
-    depth = depth_d
-    tid_f = torch.full((height, width), -1, dtype=torch.int32, device=dev)
 
-    # ---- 4c. skydome (LESS_OR_EQUAL against current depth)
-    if meta.enable_skydome and config.enable_skydome:
+    # ---- 4b. forward objects (z-test against the GBuffer depth); their
+    # point lights are culled against their own visible surface.
+    if meta.has_forward:
+        setup_f = triangle_setup(
+            tri_clip, width, height,
+            two_sided=scene.tri_two_sided,
+            valid_mask=scene.tri_valid & ~scene.tri_deferred,
+        )
+        f_uv, f_combo, _ = _fused_flags(meta)
+        extra_f = _fused_extra(scene, setup_f.edge.shape[0], world, n_world,
+                               need_uv=f_uv, need_combo=f_combo)
+        depth, tid_f, planes_f, pairs_f = _raster_vis_fused(
+            setup_f, extra_f, height, width, config, meta=meta,
+            init_depth=depth_d)
+        attrs_f = surface_attributes_from_planes(
+            scene, planes_f, config, var_ch=meta.tex_channels,
+            flat_normal=meta.flat_normal)
+        tiled_f, pallas_f = culled_lights(attrs_f)
+        fwd_color = forward_shade(
+            attrs_f, shadowmap, scene, view, config,
+            tiled_points=tiled_f, pallas_points=pallas_f)
+        color = torch.where((tid_f >= 0)[..., None], fwd_color, color)
+        pair_overflow = pair_overflow + pairs_f.overflow
+        live_pairs["forward"] = pairs_f.gbounds[1]
+    else:
+        depth = depth_d
+        tid_f = torch.full((height, width), -1, dtype=torch.int32,
+                           device=dev)
+
+    # ---- 4c. skydome (LESS_OR_EQUAL against current depth); skipped in
+    # the debug views (ZeldaEngine.cpp:3682).
+    if (meta.enable_skydome and config.enable_skydome
+            and int(view.debug_view) == 0):
         color, depth = _skydome_analytic(
             scene, view, depth, color, height, width, config)
 

@@ -11,7 +11,8 @@ The deferred GBuffer layout matches BaseScene.frag:43-47 / XkGBuffer
 
 The fused raster kernel already produced the interpolants and their
 analytic screen-space derivatives (exact, replacing dFdx/dFdy quads); what
-remains here is the material fetch and the TBN normal mapping.
+remains here is the material fetch (per-combo constants plus one mip-pair
+atlas fetch of the spatially varying channels) and the TBN normal mapping.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from zeldaengine_tpu_torch.config import EngineConfig
 from zeldaengine_tpu_torch.ops import pbr
+from zeldaengine_tpu_torch.ops.texture import sample_trilinear_packed
 
 
 class SurfaceAttributes(NamedTuple):
@@ -42,31 +44,50 @@ class SurfaceAttributes(NamedTuple):
 
 
 def _material_texels(scene, config, combo, uv, lod, var_ch):
-    """The per-pixel material fetch: per-combo constants from
-    ``scene.mat_const`` for the spatially constant channels (constant-slot
-    elision; default PBR slots are spatially constant). Returns (H, W, 13)
+    """The per-pixel material fetch: ONE mip-pair row fetch over the
+    VARYING channels + per-combo constants for the rest (constant-slot
+    elision: default PBR slots are spatially constant). Returns (H, W, 13)
     in the canonical channel order [bc.rgb, nrm.rgb, em.rgb, metallic,
     roughness, ao, mask].
 
-    ``var_ch`` = SceneMeta.tex_channels. Scenes with varying channels need
-    the trilinear mip-pair sampler, which is not ported yet."""
-    if scene.mat_const is None or var_ch is None or len(var_ch) > 0:
-        raise NotImplementedError(
-            "textured materials (SceneMeta.tex_channels != ()) need the "
-            "trilinear atlas samplers, not ported yet (ROADMAP.md A4: "
-            "ops/texture.py samplers)")
-    table = scene.mat_const[:, :13]  # (Mc, 13)
-    mc = table.shape[0]
-    shape = combo.shape + (13,)
-    if mc == 1:
-        return table[0].broadcast_to(shape)
-    if mc <= 8:
-        # Select chain beats a per-pixel gather at few combos.
-        cvals = table[0].broadcast_to(shape)
-        for i in range(1, mc):
-            cvals = torch.where((combo == i)[..., None], table[i], cvals)
-        return cvals
-    return table[combo.long()]
+    ``var_ch`` = SceneMeta.tex_channels (None = legacy full-16 atlas)."""
+    if scene.mat_const is None:
+        return sample_trilinear_packed(
+            scene.combined_atlas, combo, uv, lod, config.texture_size)
+    assert var_ch is not None, (
+        "scene was built with constant-slot elision; pass "
+        "var_ch=SceneMeta.tex_channels")
+    n_var = scene.combined_atlas.shape[-1] // 13
+    assert n_var == max(len(var_ch), 1), (n_var, var_ch)
+    tex_var = None
+    if var_ch:
+        tex_var = sample_trilinear_packed(
+            scene.combined_atlas, combo, uv, lod, config.texture_size)
+    var_set = set(var_ch)
+    const_ch = [c for c in range(13) if c not in var_set]
+    mc = scene.mat_const.shape[0]
+    if const_ch:
+        table = scene.mat_const[:, const_ch]  # (Mc, k2)
+        shape = combo.shape + table.shape[1:]
+        if mc <= 8:
+            # Select chain beats a per-pixel gather at few combos.
+            cvals = table[0].broadcast_to(shape)
+            for i in range(1, mc):
+                cvals = torch.where((combo == i)[..., None], table[i], cvals)
+        else:
+            cvals = table[combo.long()]
+        if not var_ch:
+            return cvals  # all 13 channels, in canonical order
+    chans = []
+    vi = ci = 0
+    for c in range(13):
+        if c in var_set:
+            chans.append(tex_var[..., vi])
+            vi += 1
+        else:
+            chans.append(cvals[..., ci])
+            ci += 1
+    return torch.stack(chans, dim=-1)
 
 
 def _finish_attributes(scene, config, covered, combo, uv, lod, vertex_color,
