@@ -9,7 +9,10 @@ rocks, 16 point lights culled to 40x128 blocks and shaded by the
 point-light kernel, tiles 64x32); the same frame with 512 point lights;
 one frame through each opt-in PCF backend that has a kernel; bench config
 3t (the same frame with per-slot PBR textures and the variable-lod cube
-reflection); bench config 1 (a forward-shaded sphere at 512x512); and the
+reflection); bench config 1 (a forward-shaded sphere at 512x512); bench
+config 4 (16 spheres of 64,400 triangles baked by the native meshlet
+builder, 1,030,400 triangles in 14,004 meshlets, culled by frustum and cone
+tests and compacted every frame, at 1024x1024); and the
 committed golden scene in debug views 0, 1, 4, 8 and 9, held against
 tests/golden/*.png, and its view 0 once more with both passes' point lights
 through the point-light kernel. Every kernel is replayed on the inputs a frame
@@ -45,9 +48,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from zeldaengine_tpu_torch import EngineConfig, TEST_CONFIG  # noqa: E402
-from zeldaengine_tpu_torch import ops  # noqa: E402
+from zeldaengine_tpu_torch import native, ops  # noqa: E402
 from zeldaengine_tpu_torch.engine import Engine  # noqa: E402
 from zeldaengine_tpu_torch.math import transforms  # noqa: E402
+from zeldaengine_tpu_torch.meshlet import build_meshlets  # noqa: E402
 from zeldaengine_tpu_torch.ops import _build  # noqa: E402
 from zeldaengine_tpu_torch.ops import lighting, lighting_cuda  # noqa: E402
 from zeldaengine_tpu_torch.ops import pcf_cuda, rasterize as rast  # noqa: E402
@@ -107,6 +111,12 @@ MAIN_PATH = {"pair_raster": 1, "pair_raster_fused": 1, "pcf_taps": 1,
 FORWARD_PATH = {"pair_raster_fused": 1, "pcf_taps": 1, "fma": 7}
 GOLDEN_PATH = {"pair_raster": 1, "pair_raster_fused": 2, "pcf_taps": 2,
                "bilinear_tap": 1, "fma": 19}
+# Bench config 4 (no point light: K5 never). Kernel fma also runs the two
+# meshlet culls' sums (ops/culling.py): 3 for each view-model product and
+# 14 for each cull with its cone test (the shadow pass's too:
+# shadow_cone_cull).
+FRAME4_PATH = {"pair_raster": 1, "pair_raster_fused": 1, "pcf_taps": 1,
+               "bilinear_tap": 1, "fma": 50}
 GOLDEN_VIEWS = {"final": 0, "basecolor": 1, "normals": 4, "shadow": 8,
                 "gbuffervis": 9}
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -359,8 +369,10 @@ def strip_walk_load(pairs, height, width, kw, split: bool = False) -> dict:
 
 
 def raster_bound(pairs, setup, height, width, kw, out_words: int,
-                 walk: dict) -> dict:
-    """``walk``: the strip walk's load (``strip_walk_load``)."""
+                 walk: dict, path: str = "frame") -> dict:
+    """``walk``: the strip walk's load (``strip_walk_load``); ``path``: the
+    frame the pairs came from (the ``bound`` line's label). ``pairs`` as
+    ``build_pairs`` returned them: ``pair_tri`` indexes ``setup``'s rows."""
     tests, all_tests = needed_tests(pairs, setup, height, width,
                                     kw["tile_h"], kw["tile_w"])
     kernel_tests = walk["tests"]
@@ -372,7 +384,7 @@ def raster_bound(pairs, setup, height, width, kw, out_words: int,
     t_ops = tests * OPS_PER_TEST / PEAK_FP32_PER_S * 1e3
     extra = dict(pixel_pair_tests_without_skip=all_tests,
                  **{k: v for k, v in walk.items() if k != "tests"})
-    emit("bound", pixel_pair_tests_in_bbox=tests,
+    emit("bound", path=path, pixel_pair_tests_in_bbox=tests,
          pixel_pair_tests_of_the_kernel=kernel_tests,
          kernel_over_bbox=kernel_tests / max(tests, 1), live_pairs=live,
          bytes=n_bytes, bytes_ms=t_bytes, operations_ms=t_ops, **extra)
@@ -699,6 +711,21 @@ def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
     def by_path(name):
         return {path: c.get(name, 0) for path, c in path_launches.items()}
 
+    def frame4_times(name, wrapper, pass_index, out_words):
+        """The raster kernel's device time and bound on config 4's frame
+        (the pass's pairs as build_pairs gave them, before their ids were
+        mapped back through the compaction)."""
+        args, kw = paths["frame4"][name]
+        call = lambda: wrapper(*args, backend="cuda", **kw)  # noqa: E731
+        setup, built = paths["frame4"]["build_pairs"][pass_index]
+        check(built.records is args[0].records,
+              f"frame4: {name}'s pairs are not build_pairs' pass "
+              f"{pass_index}")
+        return dict(ms=graph_ms(call, 10), **raster_bound(
+            built, setup, args[1], args[2], kw, out_words,
+            walk=strip_walk_load(built, args[1], args[2], kw),
+            path="frame4"))
+
     # ---- K1 pair_raster
     (pairs, ph, pw), kw = captured["pair_raster"]
     (setup_sh, pairs_sh), (setup_gb, pairs_gb) = captured["build_pairs"]
@@ -756,7 +783,8 @@ def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
                   cmp_k1)
         check(res["negative_zero_depths"] > 0, "no -0.0 depth won")
     replay("pair_raster", rc.rasterize_pairs, cmp_k1,
-           [("frame3t", "shadow map"), ("golden", "shadow map, 8x128 tiles")])
+           [("frame3t", "shadow map"), ("golden", "shadow map, 8x128 tiles"),
+            ("frame4", "shadow map 512^2, 32x128 tiles, compacted casters")])
     call = lambda: rc.rasterize_pairs(  # noqa: E731
         pairs, ph, pw, backend="cuda", **kw)
     times = kernel_times(call, 10)
@@ -780,6 +808,8 @@ def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
                      **raster_bound(pairs, setup_sh, ph, pw, kw, out_words=1,
                                     walk=strip_walk_load(pairs, ph, pw, kw,
                                                          split=True)),
+                     frame4=frame4_times("pair_raster", rc.rasterize_pairs,
+                                         0, 1),
                      # No PyTorch call rasterizes pair lists.
                      library_ms=None))
 
@@ -826,7 +856,8 @@ def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
            [("frame3t", "GBuffer, textured"),
             ("forward", "forward sphere, init_depth = far plane, 32x128 "
              "tiles"),
-            ("golden", "forward sphere, init_depth = GBuffer depth")])
+            ("golden", "forward sphere, init_depth = GBuffer depth"),
+            ("frame4", "GBuffer 1024^2, 32x128 tiles, compacted")])
     call = lambda: rc.rasterize_pairs_fused(  # noqa: E731
         fpairs, fh, fw, backend="cuda", **fkw)
     times = kernel_times(call, 10)
@@ -842,6 +873,9 @@ def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
                                     out_words=2 + rc.ATTR_CH,
                                     walk=strip_walk_load(fpairs, fh, fw,
                                                          fkw)),
+                     frame4=frame4_times("pair_raster_fused",
+                                         rc.rasterize_pairs_fused, 1,
+                                         2 + rc.ATTR_CH),
                      # No PyTorch call rasterizes pair lists.
                      library_ms=None))
 
@@ -905,7 +939,8 @@ def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
     replay("pcf_taps", pcf_cuda.compute_pcf_vmem, cmp_bits,
            [("frame3t", "deferred resolve"),
             ("forward", "forward pixels, shadow map of ones"),
-            ("golden", "forward pixels")])
+            ("golden", "forward pixels"),
+            ("frame4", "deferred resolve 1024^2, 512^2 map")])
     call = lambda: pcf_cuda.compute_pcf_vmem(  # noqa: E731
         sm, sc, backend="cuda", **pkw)
     times = kernel_times(call, 20)
@@ -939,7 +974,8 @@ def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
         window_tap.sample_base_window, (planes_s, uv_s, None, 64), {},
         cmp_small)
     replay("bilinear_tap", window_tap.sample_base_window, cmp_bits,
-           [("frame3t", "skydome"), ("golden", "skydome")])
+           [("frame3t", "skydome"), ("golden", "skydome"),
+            ("frame4", "skydome 1024^2")])
     call = lambda: window_tap.sample_base_window(  # noqa: E731
         *targs, backend="cuda")
     times = kernel_times(call, 20)
@@ -1383,6 +1419,118 @@ def phase_forward():
     return captured, launches, warm + timed
 
 
+def config4() -> EngineConfig:
+    """bench.py's config 4 (bench.py:254-334), nothing changed."""
+    return EngineConfig(width=1024, height=1024, shadowmap_dim=512,
+                        texture_size=128, cubemap_size=64,
+                        background_size=128, max_point_lights=8,
+                        pair_expand=4, pair_expand_shadow=2,
+                        compact_tris=384 * 1024,
+                        compact_tris_shadow=96 * 1024,
+                        shadow_cone_cull=True, subpixel_cull=True,
+                        max_pairs=384 * 1024, max_pairs_shadow=64 * 1024)
+
+
+def config4_scene(config, device="cuda"):
+    """Config 4's scene as bench.py builds it: 16 spheres of
+    make_sphere(0.8, 140, 230) on a 4x4 grid, each baked to meshlets by the
+    native builder, and bench.py's make_world(pos=(6, -6, 3), lookat=(0, 0,
+    0.8), z_far=80). Returns (scene, meta, world, bake seconds)."""
+    b = SceneBuilder(config)
+    mat = b.add_material({})
+    t0 = time.time()
+    mesh = make_sphere(0.8, rings=140, sectors=230)
+    for i in range(16):
+        offs = np.float32([(i % 4 - 1.5) * 2.2, (i // 4 - 1.5) * 2.2, 0.8])
+        b.add_meshlet_object(build_meshlets(
+            mesh.positions + offs, mesh.indices, normals=mesh.normals,
+            uvs=mesh.uvs), mat)
+    bake_s = time.time() - t0
+    scene, meta = b.build(device)
+    w = World()
+    w.main_camera = CameraDesc(position=np.float32([6.0, -6.0, 3.0]),
+                               lookat=np.float32([0.0, 0.0, 0.8]),
+                               z_far=80.0)
+    moon = np.float32([20.0, 0.0, 20.0])
+    w.directional_lights = [
+        LightDesc(position=moon, type=0,
+                  color=np.float32([1.0, 0.95, 0.85]), intensity=3.0,
+                  direction=moon / np.linalg.norm(moon))]
+    return scene, meta, w, bake_s
+
+
+def config4_culls(scene, view, config) -> dict:
+    """Meshlets kept by the frame's camera cull and by its shadow cull, as
+    ``render_rows`` calls them."""
+    vp = transforms.mat4_product(view.view_proj, view.model)
+    sp = transforms.mat4_product(view.shadow_space, view.model)
+    cam = frame_graph.meshlet_cull(scene.meshlet_records, vp,
+                                   view.camera_pos, model=view.model)
+    sh = frame_graph.meshlet_cull(scene.meshlet_records, sp,
+                                  view.dir_lights[0, 0, :3], model=view.model,
+                                  cone=config.shadow_cone_cull)
+    return {"camera": int(cam.sum()), "shadow": int(sh.sum())}
+
+
+def phase_frame4():
+    """Bench config 4: 1,030,400 triangles in 14,004 meshlets baked by the
+    native builder, culled (frustum + cone, the camera's and the light's)
+    and compacted (384 k camera slots, 96 k shadow slots) every frame, at
+    1024x1024 with 32x128 tiles: 2 warm-up + 8 timed frames, K1-K4 once per
+    frame. The frame at time 0 is noted for phase kernels and checked:
+    finite, a triangle at the centre pixel, no compaction or pair
+    overflow."""
+    config = config4()
+    t0 = time.time()
+    scene, meta, world, bake_s = config4_scene(config)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    check(native.available(), "the native meshlet builder did not load")
+    check((meta.num_triangles, meta.num_meshlets) == (1030400, 14004),
+          f"config 4 has {meta.num_triangles} triangles in "
+          f"{meta.num_meshlets} meshlets")
+    warm, timed = 2, 8
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms, host_ms, image, aux, launches = timed_frames(
+        scene, meta, world, config, warm, timed)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    check_launches(launches, {k: v * (warm + timed)
+                              for k, v in FRAME4_PATH.items()}, "frame4")
+    captured, image, aux = noted_frame(scene, meta, world, config,
+                                       dict(time=0.0))
+    h, w = config.height, config.width
+    check(tuple(image.shape) == (h, w, 3), f"image {image.shape}")
+    check(bool(torch.isfinite(image).all()), "image is not finite")
+    check(int(aux["tri_id"][h // 2, w // 2]) >= 0,
+          "no triangle at the centre")
+    overflow = {k: int(aux[k]) for k in ("compact_overflow",
+                                         "pair_overflow")}
+    check(overflow == {"compact_overflow": 0, "pair_overflow": 0},
+          f"config 4 overflowed at time 0: {overflow}")
+    (setup_sh, _), (setup_gb, _) = captured["build_pairs"]
+    kept = config4_culls(scene, build_view_state(world, config, time=0.0),
+                         config)
+    busy = phase_profile(scene, meta, world, config, phase="profile_frame4")
+    emit("frame4", frame_ms=statistics.median(frame_ms),
+         frame_ms_all=frame_ms, host_frame_ms=statistics.median(host_ms),
+         device_busy_ms=busy["device_busy_ms"],
+         device_launches=busy["device_launches"],
+         frames=timed, warmup=warm, triangles=meta.num_triangles,
+         meshlets=meta.num_meshlets, native_builder_loaded=True,
+         bake_s=round(bake_s, 2), scene_build_s=round(build_s, 2),
+         meshlets_kept_time0=kept,
+         live_triangles_time0={"camera": int(setup_gb.valid.sum()),
+                               "shadow": int(setup_sh.valid.sum())},
+         compaction_caps={"camera": config.compact_tris,
+                          "shadow": config.compact_tris_shadow},
+         live_pairs_time0={k: int(v) for k, v in aux["live_pairs"].items()},
+         overflow_time0=overflow,
+         covered_fraction=float((aux["tri_id"] >= 0).float().mean()),
+         image_std=float(image.std()), peak_memory_mb=peak_mb,
+         tile=(config.tile_h, config.tile_w), launches=launches)
+    return captured, launches, warm + timed
+
+
 def phase_golden():
     """The committed golden scene (tests/test_golden.py::_build, built by
     the port) on the card through the kernels, in debug views 0, 1, 4, 8
@@ -1571,6 +1719,7 @@ def phase_profile(scene, meta, world, config, phase="profile") -> dict:
     view = build_view_state(world, config, time=0.7, roll_light=0.3)
     render_frame(scene, view, meta, config)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         render_frame(scene, view, meta, config)
@@ -1594,6 +1743,7 @@ def phase_profile(scene, meta, world, config, phase="profile") -> dict:
     gathers = [e for e in rows if "index" in e.key.lower()
                or "gather" in e.key.lower()]
     emit(phase, **busy,
+         peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
          top=[{"name": e.key[:70], "ms": dev_us(e) / 1e3, "calls": e.count}
               for e in rows[:10]],
          gather_rows=[{"name": e.key[:70], "ms": dev_us(e) / 1e3,
@@ -1700,11 +1850,22 @@ def phase_engine() -> None:
 
 def main() -> None:
     t0 = time.time()
-    info = phase_device()
-    phase_build()
-    scene, meta, world, config, captured, launches, n_frame = phase_frame()
-    phase_lights512(scene, meta, world, config, captured)
-    pcf_launches = phase_pcf_backends(scene, meta, world, config, captured)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its seconds noted under ``name``."""
+        t = time.time()
+        out = fn(*args)
+        seconds[name] = round(time.time() - t, 1)
+        return out
+
+    info = timed("device", phase_device)
+    timed("build", phase_build)
+    scene, meta, world, config, captured, launches, n_frame = timed(
+        "frame", phase_frame)
+    timed("lights512", phase_lights512, scene, meta, world, config, captured)
+    pcf_launches = timed("pcf_backends", phase_pcf_backends, scene, meta,
+                         world, config, captured)
     for name in PCF_BACKEND_KERNEL.values():
         launches[name] = pcf_launches[name]
 
@@ -1712,25 +1873,25 @@ def main() -> None:
         return {k: v / n for k, v in counts.items()}
 
     # Launches per frame of each path: config 3 (K6-K8 in the one frame
-    # through each opt-in PCF backend), config 3t, config 1, the golden
-    # scene's view 0, and that view with the point-light kernel.
+    # through each opt-in PCF backend), config 3t, config 1, config 4, the
+    # golden scene's view 0, and that view with the point-light kernel.
     path_launches = {"frame": {k: v / n_frame if k in MAIN_PATH else v
                                for k, v in launches.items()}}
     paths = {"frame": captured}
-    captured3t, launches3t, n3t = phase_frame3t()
-    paths["frame3t"], path_launches["frame3t"] = captured3t, per_frame(
-        launches3t, n3t)
-    captured1, launches1, n1 = phase_forward()
-    paths["forward"], path_launches["forward"] = captured1, per_frame(
-        launches1, n1)
+    for path, phase in (("frame3t", phase_frame3t),
+                        ("forward", phase_forward),
+                        ("frame4", phase_frame4)):
+        noted, counts, n = timed(path, phase)
+        paths[path], path_launches[path] = noted, per_frame(counts, n)
     for path, (c, counts) in zip(("golden", "golden_points"),
-                                 phase_golden()):
+                                 timed("golden", phase_golden)):
         paths[path], path_launches[path] = c, counts
-    rows = phase_kernels(captured, launches, paths, path_launches)
+    rows = timed("kernels", phase_kernels, captured, launches, paths,
+                 path_launches)
     check(not FAILURES, "; ".join(FAILURES))
-    phase_frame_vs_plain()
-    phase_engine()
-    emit("done", seconds=round(time.time() - t0, 1))
+    timed("frame_vs_plain", phase_frame_vs_plain)
+    timed("engine", phase_engine)
+    emit("done", seconds=round(time.time() - t0, 1), phase_seconds=seconds)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

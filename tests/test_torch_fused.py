@@ -139,7 +139,7 @@ def test_covered_pixels_lie_in_their_winners_strip_span(state, tile_h,
     setup = setup_from_numpy(to_numpy_leaves(jsetup), "cpu")
     if shadow:
         tcfg = TEST_CONFIG.replace(shadow_tile_h=tile_h, shadow_tile_w=tile_w)
-        _, pairs = tframe._raster_depth(setup, height, tcfg)
+        _, pairs, _ = tframe._raster_depth(setup, height, tcfg)
         ph = pw = -(-height // tile_h) * tile_h
         y_row = 13
         _, tid = tp.rasterize_pairs(pairs, ph, pw, tile_h=tile_h,
@@ -148,7 +148,7 @@ def test_covered_pixels_lie_in_their_winners_strip_span(state, tile_h,
         extra = jframe._fused_extra(scene, jsetup, world, n_world)
         tcfg = TEST_CONFIG.replace(width=W, height=height, tile_h=tile_h,
                                    tile_w=tile_w)
-        _, _, _, pairs = tframe._raster_vis_fused(
+        _, _, _, pairs, _ = tframe._raster_vis_fused(
             setup, torch.from_numpy(np.array(extra)), height, W, tcfg)
         ph, pw = -(-height // tile_h) * tile_h, W
         y_row = 12 + extra.shape[1] + 1

@@ -3,8 +3,6 @@ naming the ``ROADMAP.md`` item that will bring it; nothing is silently
 served by another path. One test per part of the frame, each going through
 all of that part's unported values."""
 
-import dataclasses
-
 import pytest
 import torch
 
@@ -26,12 +24,9 @@ def frame_args():
 
 
 # part of the frame -> [(what to change, the ROADMAP item it must name)].
-# A dict changes the config; a string names a change of view, scene, meta
-# or band (see _apply).
+# A dict changes the config; "band" asks for a row band (see _apply).
 _UNPORTED = {
     "raster_options": [
-        (dict(compact_tris=512), "compact_setup"),
-        (dict(compact_tris_shadow=512), "compact_setup"),
         (dict(pair_align=True), "align"),
         (dict(raster_early_out=True), "early-out"),
     ],
@@ -55,9 +50,6 @@ _UNPORTED = {
         (dict(reflection_half=True), "half"),
         (dict(ablate="nopcf"), "ablations"),
     ],
-    "scene_facts": [
-        ("has_meshlets", "culling"),
-    ],
     "view_and_bands": [
         ("band", "parallel/tiles.py"),
     ],
@@ -69,10 +61,9 @@ def _apply(change, scene, view, meta, cfg):
     kw = {}
     if isinstance(change, dict):
         cfg = cfg.replace(**change)
-    elif change == "band":
-        kw = dict(y0=0, rows=64, full_frame=False)
     else:
-        meta = dataclasses.replace(meta, **{change: True})
+        assert change == "band", change
+        kw = dict(y0=0, rows=64, full_frame=False)
     return scene, view, meta, cfg, kw
 
 

@@ -18,7 +18,10 @@ Parity sources (reference file:line):
 Inputs may be tensors, numpy arrays or Python sequences; results are
 float32 tensors on the device of the first tensor argument (CPU when no
 argument is a tensor). Matrix products are plain fp32 ``@`` (TF32 is
-switched off at package import).
+switched off at package import), but for the frame's camera and shadow
+matrices (``look_at``, ``perspective``, ``mat4_product``), which round as
+the JAX package's compiled ``passes/view.py::_view_matrices`` does on the
+CPU: the frame's shadow and cull tests depend on their last bits.
 """
 
 from __future__ import annotations
@@ -42,39 +45,75 @@ def matmul_f32(a, b):
     return torch.matmul(a, b)
 
 
-def _normalize(v, dim=-1, eps=1e-20):
-    return v / torch.sqrt(
-        torch.clamp_min(torch.sum(v * v, dim=dim, keepdim=True), eps))
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded fp32 square root on every device (the fp64 root of
+    an fp32 value rounds to the fp32 root exactly). PyTorch's vectorised
+    fp32 ``sqrt`` on the CPU is off by one ulp on ~15 % of inputs."""
+    return torch.sqrt(x.double()).float()
 
 
-def _cross(a, b):
-    return torch.linalg.cross(a, b, dim=-1)
+def dot3(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """sum_k x[..., k] * y[..., k] over a last axis of 3 as XLA's compiled
+    dot products and sums of squares form it on the CPU: fma(x2, y2,
+    fma(x1, y1, x0 * y0)). ``x`` and ``y`` broadcast together."""
+    acc = x[..., 0] * y[..., 0]
+    acc = fma_f32(x[..., 1], y[..., 1], acc)
+    return fma_f32(x[..., 2], y[..., 2], acc)
+
+
+def mat4_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(4, 4) @ (4, 4) as XLA's compiled product sums each entry on the
+    CPU: fma(a3 b3, fma(a2 b2, fma(a1 b1, a0 b0))) over the inner index."""
+    acc = a[:, 0:1] * b[0:1, :]
+    for k in range(1, 4):
+        acc = fma_f32(a[:, k:k + 1], b[k:k + 1, :], acc)
+    return acc
+
+
+def _cross_fused(a, b):
+    """a x b with each component fma(a_i, b_j, -(a_j * b_i))."""
+    i, j = [1, 2, 0], [2, 0, 1]
+    return fma_f32(a[i], b[j], -(a[j] * b[i]))
+
+
+def _normalize_fused(v):
+    return v / sqrt_f32(torch.clamp_min(dot3(v, v), 1e-20))
 
 
 def look_at(eye, center, up):
-    """glm::lookAtRH. Returns 4x4 view matrix."""
+    """glm::lookAtRH. Returns 4x4 view matrix, rounded as the JAX package's
+    compiled ``_view_matrices`` rounds it on the CPU: cross products and
+    norms with fused multiply-adds, the rows' translations s.eye and f.eye
+    summed without and u.eye with them (XLA fuses u's cross product into
+    its dot product)."""
     eye = _t(eye)
     center = _t(center, eye)
     up = _t(up, eye)
-    f = _normalize(center - eye)
-    s = _normalize(_cross(f, up))
-    u = _cross(s, f)
+    f = _normalize_fused(center - eye)
+    s = _normalize_fused(_cross_fused(f, up))
+    u = _cross_fused(s, f)
+
+    def plain_dot(a, b):
+        return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2]
+
     return torch.stack(
         [
-            torch.cat([s, -torch.dot(s, eye)[None]]),
-            torch.cat([u, -torch.dot(u, eye)[None]]),
-            torch.cat([-f, torch.dot(f, eye)[None]]),
+            torch.cat([s, -plain_dot(s, eye)[None]]),
+            torch.cat([u, -dot3(u, eye)[None]]),
+            torch.cat([-f, plain_dot(f, eye)[None]]),
             _t([0.0, 0.0, 0.0, 1.0], eye),
         ]
     )
 
 
 def perspective(fovy_radians, aspect, z_near, z_far):
-    """glm::perspectiveRH_ZO (GLM_FORCE_DEPTH_ZERO_TO_ONE): depth in [0,1]."""
-    tan_half = torch.tan(_t(fovy_radians) / 2.0)
+    """glm::perspectiveRH_ZO (GLM_FORCE_DEPTH_ZERO_TO_ONE): depth in [0,1].
+    The tangent is correctly rounded and ``aspect`` an fp32 factor, as XLA
+    folds them in the JAX package's compiled ``_view_matrices``."""
+    tan_half = torch.tan((_t(fovy_radians) / 2.0).double()).float()
     zero = torch.zeros((), dtype=torch.float32, device=tan_half.device)
     one = torch.ones((), dtype=torch.float32, device=tan_half.device)
-    m00 = 1.0 / (aspect * tan_half)
+    m00 = 1.0 / (_t(aspect, tan_half) * tan_half)
     m11 = 1.0 / tan_half
     m22 = z_far / (z_near - z_far)
     m23 = -(z_far * z_near) / (z_far - z_near)

@@ -98,6 +98,64 @@ def _covers_pixel_center(bbox):
     return has_cx & has_cy
 
 
+def compact_setup(setup: TriangleSetup, cap: int,
+                  extra: Optional[torch.Tensor] = None,
+                  center_cull: bool = False):
+    """Compact live triangles into a ``cap``-sized prefix.
+
+    At meshlet scale (a 1M-triangle pool, most of it culled by the frustum
+    and cone tests) the pair binning would sort T * expand keys and gather
+    T-sized records whatever the cull kept; compacting the live (post-cull,
+    on-screen) triangles first makes every later cost track the live count:
+    one cumulative sum and one T-element scatter.
+
+    Returns (setup', extra', idx, overflow): ``idx`` (cap,) int32 maps
+    compacted rows to ORIGINAL triangle ids (T for dead padding rows, whose
+    rows are zeros with ``valid`` False), for ``remap_pair_tri``;
+    ``overflow`` () int32 counts the live triangles the cap dropped, the
+    highest ids first: max(n_live - cap, 0).
+    """
+    t = setup.edge.shape[0]
+    dev = setup.edge.device
+    bbox = setup.bbox
+    live = setup.valid & (bbox[:, 2] > bbox[:, 0]) & (bbox[:, 3] > bbox[:, 1])
+    if center_cull:
+        live = live & _covers_pixel_center(bbox)
+    pos = torch.cumsum(live.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_live = pos[-1] + 1 if t > 0 else torch.zeros((), dtype=torch.int32,
+                                                    device=dev)
+    tgt = torch.where(live & (pos < cap), pos, torch.full_like(pos, cap))
+    idx = torch.full((cap + 1,), t, dtype=torch.int32, device=dev)
+    # Every dead or dropped triangle lands on the extra slot ``cap``.
+    idx[tgt.long()] = torch.arange(t, dtype=torch.int32, device=dev)
+    idx = idx[:cap]
+    overflow = torch.clamp_min(n_live - cap, 0).to(torch.int32)
+    rows = torch.clamp_max(idx, max(t - 1, 0)).long()
+    dead = idx >= t
+
+    def g(a):
+        # The cap rows only: no copy of the T-row array with a pad row.
+        out = a[rows] if t > 0 else a.new_zeros((cap, *a.shape[1:]))
+        return torch.where(dead.view(-1, *[1] * (a.dim() - 1)),
+                           torch.zeros((), dtype=a.dtype, device=dev), out)
+
+    setup2 = TriangleSetup(
+        edge=g(setup.edge), zc=g(setup.zc), valid=g(setup.valid),
+        bbox=g(setup.bbox),
+        zmin=None if setup.zmin is None else g(setup.zmin))
+    return setup2, None if extra is None else g(extra), idx, overflow
+
+
+def remap_pair_tri(pairs: PairedTriangles, idx: torch.Tensor,
+                   orig_t: int) -> PairedTriangles:
+    """Map compacted ``pair_tri`` back to original triangle ids (dead pairs,
+    which carry the compacted count, -> ``orig_t``: the uncompacted dead
+    convention)."""
+    idx_pad = torch.cat([idx, torch.full((1,), orig_t, dtype=torch.int32,
+                                         device=idx.device)])
+    return pairs._replace(pair_tri=idx_pad[pairs.pair_tri.long()])
+
+
 def build_pairs(
     setup: TriangleSetup,
     width: int,

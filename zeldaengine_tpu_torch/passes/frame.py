@@ -11,7 +11,10 @@ Pass order (matching the reference's hard-coded command order):
      (skydome skipped when debug view != 0)
 
 This is the slice of the JAX package's ``passes/frame.py`` that a
-full-frame, single-device frame runs: vertex stage -> shadow raster
+full-frame, single-device frame runs: vertex stage -> meshlet frustum +
+cone cull (``ops/culling.py``; the camera's, and the light's for the
+shadow casters) -> live-triangle compaction (``compact_setup``, where the
+config sets a cap) -> shadow raster
 (kernel ``pair_raster``) -> fused GBuffer raster (``pair_raster_fused``)
 -> materials (per-combo constants + one mip-pair atlas fetch of the
 varying channels) -> 25-tap PCF (``pcf_taps``; or an opt-in backend:
@@ -41,8 +44,10 @@ import torch.nn.functional as F
 from zeldaengine_tpu_torch.config import EngineConfig
 from zeldaengine_tpu_torch.math.color import gamma_correct
 from zeldaengine_tpu_torch.math.transforms import (
-    apply_mat4_h, apply_mat4_point)
+    apply_mat4_h, apply_mat4_point, mat4_product)
 from zeldaengine_tpu_torch.ops import pbr
+from zeldaengine_tpu_torch.ops.culling import (
+    expand_meshlet_mask, meshlet_cull)
 from zeldaengine_tpu_torch.ops.lighting import (
     cull_point_lights_tiled, shade_pixels)
 from zeldaengine_tpu_torch.ops.pcf_cuda import compute_pcf_vmem
@@ -50,9 +55,11 @@ from zeldaengine_tpu_torch.ops.pcf_window import compute_pcf_pallas
 from zeldaengine_tpu_torch.ops.rasterize import _pixel_grid, triangle_setup
 from zeldaengine_tpu_torch.ops.rasterize_cuda import (
     build_pairs,
+    compact_setup,
     fused_extra_width,
     rasterize_pairs,
     rasterize_pairs_fused,
+    remap_pair_tri,
 )
 from zeldaengine_tpu_torch.ops.shadow import (
     compute_pcf,
@@ -88,8 +95,6 @@ def unported_reasons(scene: GpuScene, view, meta: SceneMeta,
         if cond:
             why.append(f"{what} is not ported yet (ROADMAP.md {item})")
 
-    no(meta.has_meshlets, "meshlet culling (meta.has_meshlets)",
-       "A4: ops/culling.py")
     no(config.env_merge, "env_merge", "A4: ops/envtap.py")
     no(config.wireframe, "wireframe", "A5: passes/frame.py _apply_wireframe")
     no(config.skydome_mode != "analytic",
@@ -99,10 +104,6 @@ def unported_reasons(scene: GpuScene, view, meta: SceneMeta,
        "A5: passes/frame.py background")
     no(config.validation, "validation counters",
        "A5: passes/frame.py validation")
-    no(config.compact_tris is not None
-       or config.compact_tris_shadow is not None,
-       "live-triangle compaction (compact_tris / compact_tris_shadow)",
-       "A2: compact_setup")
     no(config.pair_align, "pair_align", "A2: build_pairs align")
     no(config.raster_early_out, "raster_early_out",
        "B: K1 occlusion early-out")
@@ -122,22 +123,45 @@ def _pad_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
-def _fused_extra(scene, n_t: int, world, n_world, need_uv: bool = True,
-                 need_combo: bool = True):
+def _maybe_compact(setup, extra, cap: Optional[int],
+                   config: EngineConfig):
+    """Live-triangle compaction when ``cap`` (``config.compact_tris``, or
+    ``compact_tris_shadow`` for the shadow pass) is set and smaller than
+    the pool: the pair binning then tracks the live count instead of the
+    pool's capacity. Returns (setup, extra, original ids of the compacted
+    rows or None, live triangles the cap dropped)."""
+    if cap is None or cap >= setup.edge.shape[0]:
+        return setup, extra, None, 0
+    return compact_setup(setup, cap, extra=extra,
+                         center_cull=config.subpixel_cull)
+
+
+def _fused_extra(scene, n_t: int, world, n_world, tri_idx=None,
+                 need_uv: bool = True, need_combo: bool = True):
     """Per-triangle fused-record payload (T, fused_extra_width(flags)):
     material-combo id (as a float value, elided when every triangle
     shares one combo) + 3 corners x (uv2 [elided for textureless
     flat-normal scenes], color3, world-pos3, world-normal3). O(T) work
-    once per frame instead of a per-PIXEL record gather."""
+    once per frame instead of a per-PIXEL record gather.
+
+    ``tri_idx``: compacted original-triangle ids (``compact_setup``): the
+    corner gather then runs over the cap rows instead of the first
+    ``n_t`` triangles of the pool. Rows whose id is the dead sentinel
+    gather the last triangle harmlessly (their records are forced to the
+    never-record by ``setup.valid``)."""
     static = (scene.pair_static[:, :5] if need_uv
               else scene.pair_static[:, 2:5])
     pair_all = torch.cat([static, world, n_world], dim=1)  # (P, 11 or 9)
     cw = pair_all.shape[1]
-    tv = scene.tri_vtx[:n_t].long()
-    corners = pair_all[tv].reshape(n_t, 3 * cw)
+    if tri_idx is None:
+        rows = slice(0, n_t)
+    else:
+        rows = torch.clamp_max(tri_idx, scene.tri_vtx.shape[0] - 1).long()
+    tv = scene.tri_vtx[rows].long()
+    corners = pair_all[tv].reshape(tv.shape[0], 3 * cw)
     if not need_combo:
         return corners
-    mat = scene.tri_meta[:n_t, 3].long()
+    mat = scene.tri_meta[rows, 3].long()
     combo = scene.mat_combined[mat].to(torch.float32)
     return torch.cat([combo[:, None], corners], dim=1)
 
@@ -174,14 +198,27 @@ def _span_padded_rows(setup, height: int, padded: int):
 def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
                       meta=None, init_depth=None):
     """Fused visibility raster + attribute interpolation: returns
-    (depth, tid, attr planes (ATTR_CH, H, W), the pair stream). The frame is
-    padded to whole tiles (1080 rows -> 1088 at 64-row tiles) and cropped
-    back; ``init_depth`` (H, W) is padded with the far plane."""
+    (depth, tid, attr planes (ATTR_CH, H, W), the pair stream, live
+    triangles the compaction cap dropped). The frame is padded to whole
+    tiles (1080 rows -> 1088 at 64-row tiles) and cropped back;
+    ``init_depth`` (H, W) is padded with the far plane. ``extra`` is the
+    payload, or a callable that builds it from the compacted original ids
+    (None without compaction), so that it covers the cap rows only. The
+    pair stream's ``pair_tri`` holds original triangle ids."""
     need_uv, need_combo, combo_const = (
         _fused_flags(meta) if meta is not None else (True, True, 0.0))
     n_extra = fused_extra_width(need_uv, need_combo)
     ph = _pad_up(height, config.tile_h)
     pw = _pad_up(width, max(config.tile_w, 128))
+    orig_t = setup.edge.shape[0]
+    # Liveness is tested on the unpadded bbox, before the span extension.
+    if callable(extra):
+        setup, _, cidx, covf = _maybe_compact(setup, None,
+                                              config.compact_tris, config)
+        extra = extra(cidx)
+    else:
+        setup, extra, cidx, covf = _maybe_compact(
+            setup, extra, config.compact_tris, config)
     assert extra.shape[1] == n_extra, (extra.shape, n_extra)
     has_z = 1 if config.raster_zsort else 0
     ysr = config.sub_rows if config.raster_ysort else None
@@ -196,6 +233,8 @@ def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
                         gather_chunks=config.pair_gather_chunks,
                         gather_pack=config.pair_gather_pack,
                         center_cull=config.subpixel_cull)
+    if cidx is not None:
+        pairs = remap_pair_tri(pairs, cidx, orig_t)
     kw = dict(tile_h=config.tile_h, tile_w=config.tile_w,
               sub_rows=config.sub_rows, texture_size=config.texture_size,
               y_row=(12 + n_extra + has_z) if ysr else -1,
@@ -207,18 +246,24 @@ def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
     depth, tid, planes = rasterize_pairs_fused(
         pairs, ph, pw, init_depth=init_depth, backend=config.raster, **kw)
     return (depth[:height, :width], tid[:height, :width],
-            planes[:, :height, :width], pairs)
+            planes[:, :height, :width], pairs, covf)
 
 
 def _raster_depth(setup, dim, config: EngineConfig):
     """The shadow map: depth-only pair raster at shadowmap resolution,
     padded to whole shadow tiles (the span of a triangle reaching the map's
     bottom edge is extended over the padded rows, as in
-    ``_raster_vis_fused``) and cropped back."""
+    ``_raster_vis_fused``) and cropped back. Returns (map, the pair stream,
+    live casters the compaction cap dropped). The casters are compacted to
+    their own cap (``config.compact_tris_shadow``): they are not the
+    camera-culled set. The pass keeps no ids, so ``pair_tri`` stays in
+    compacted rows, as in the JAX package."""
     s_th = config.shadow_tile_h or config.tile_h
     s_tw = config.shadow_tile_w or config.tile_w
     ph = _pad_up(dim, s_th)
     pw = _pad_up(dim, s_tw)
+    setup, _, _, covf = _maybe_compact(setup, None,
+                                       config.compact_tris_shadow, config)
     has_z = 1 if config.raster_zsort else 0
     ysr = config.sub_rows if config.raster_ysort else None
     if ysr and ph > dim:
@@ -235,7 +280,7 @@ def _raster_depth(setup, dim, config: EngineConfig):
     kw = dict(tile_h=s_th, tile_w=s_tw, sub_rows=config.sub_rows,
               depth_only=True, y_row=(12 + has_z) if ysr else -1)
     depth = rasterize_pairs(pairs, ph, pw, backend=config.raster, **kw)
-    return depth[:dim, :dim], pairs
+    return depth[:dim, :dim], pairs, covf
 
 
 def _shadow_factor(shadowmap, world_pos, view, config: EngineConfig,
@@ -646,7 +691,33 @@ def render_rows(
     tri_vtx = scene.tri_vtx.long()
     tri_clip = clip[tri_vtx]
 
+    # GPU-driven meshlet culling (frustum + backface cone): the per-frame
+    # compacted 'indirect draw list' as a validity mask. The bounds are
+    # transformed by ``model`` inside meshlet_cull, matching vp_model's
+    # clip transform; the camera position is in world space.
+    tri_valid = scene.tri_valid
+    if meta.has_meshlets:
+        tri_meshlet = scene.tri_meshlet
+        no_meshlet = tri_meshlet < 0
+        visible = meshlet_cull(
+            scene.meshlet_records, mat4_product(view.view_proj, view.model),
+            view.camera_pos, model=view.model)
+        tri_valid = tri_valid & (expand_meshlet_mask(
+            visible, torch.clamp_min(tri_meshlet, 0)) | no_meshlet)
+
     pair_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    # Live triangles the compaction caps dropped: 0 (a Python int, no
+    # launch) until a pass compacts; they count in pair_overflow too, as
+    # in the JAX package.
+    compact_overflow = 0
+
+    def dropped(pairs, covf):
+        nonlocal pair_overflow, compact_overflow
+        pair_overflow = pair_overflow + pairs.overflow
+        if isinstance(covf, torch.Tensor):
+            pair_overflow = pair_overflow + covf
+            compact_overflow = compact_overflow + covf
+
     live_pairs = {}
     # ---- 1. shadowmap pass (two-sided: cull disabled for Shadow pipelines)
     if shadowmap_override is not None:
@@ -654,20 +725,31 @@ def render_rows(
     elif config.enable_shadow:
         clip_sh = apply_mat4_h(view.shadow_space, world)
         # CAMERA culling must NOT apply here - geometry behind the camera
-        # still casts shadows.
+        # still casts shadows. The LIGHT frustum is a different matter:
+        # meshlets outside it cannot write the map (exact), and closed-mesh
+        # scenes can opt into the light-apex cone test (shadow_cone_cull).
+        sh_valid = scene.tri_valid
+        if meta.has_meshlets:
+            vis_sh = meshlet_cull(
+                scene.meshlet_records,
+                mat4_product(view.shadow_space, view.model),
+                view.dir_lights[0, 0, :3], model=view.model,
+                cone=config.shadow_cone_cull)
+            sh_valid = sh_valid & (expand_meshlet_mask(
+                vis_sh, torch.clamp_min(tri_meshlet, 0)) | no_meshlet)
         setup_sh = triangle_setup(
             clip_sh[tri_vtx],
             config.shadowmap_dim,
             config.shadowmap_dim,
             two_sided=True,
-            valid_mask=scene.tri_valid,
+            valid_mask=sh_valid,
             depth_bias=(config.shadow_bias_constant,
                         config.shadow_bias_slope),
         )
-        shadowmap, pairs_sh = _raster_depth(
+        shadowmap, pairs_sh, covf_sh = _raster_depth(
             setup_sh, config.shadowmap_dim, config)
         shadowmap = shadowmap.contiguous()
-        pair_overflow = pair_overflow + pairs_sh.overflow
+        dropped(pairs_sh, covf_sh)
         live_pairs["shadow"] = pairs_sh.gbounds[1]
     else:
         shadowmap = torch.ones(
@@ -680,13 +762,16 @@ def render_rows(
         setup = triangle_setup(
             tri_clip, width, height,
             two_sided=scene.tri_two_sided,
-            valid_mask=scene.tri_valid & scene.tri_deferred,
+            valid_mask=tri_valid & scene.tri_deferred,
         )
         f_uv, f_combo, _ = _fused_flags(meta)
-        extra = _fused_extra(scene, setup.edge.shape[0], world, n_world,
-                             need_uv=f_uv, need_combo=f_combo)
-        depth_d, tid_d, planes_d, pairs_d = _raster_vis_fused(
-            setup, extra, height, width, config, meta=meta)
+        n_t = setup.edge.shape[0]
+        depth_d, tid_d, planes_d, pairs_d, covf_d = _raster_vis_fused(
+            setup,
+            lambda cidx: _fused_extra(scene, n_t, world, n_world,
+                                      tri_idx=cidx, need_uv=f_uv,
+                                      need_combo=f_combo),
+            height, width, config, meta=meta)
         attrs_d = surface_attributes_from_planes(
             scene, planes_d, config, var_ch=meta.tex_channels,
             flat_normal=meta.flat_normal)
@@ -697,7 +782,7 @@ def render_rows(
         color, shadow_factor = resolve_lighting(
             gbuf, shadowmap, scene, view, config,
             tiled_points=tiled_points, pallas_points=pallas_points)
-        pair_overflow = pair_overflow + pairs_d.overflow
+        dropped(pairs_d, covf_d)
         live_pairs["gbuffer"] = pairs_d.gbounds[1]
     else:
         depth_d = torch.ones((height, width), dtype=torch.float32,
@@ -713,14 +798,16 @@ def render_rows(
         setup_f = triangle_setup(
             tri_clip, width, height,
             two_sided=scene.tri_two_sided,
-            valid_mask=scene.tri_valid & ~scene.tri_deferred,
+            valid_mask=tri_valid & ~scene.tri_deferred,
         )
         f_uv, f_combo, _ = _fused_flags(meta)
-        extra_f = _fused_extra(scene, setup_f.edge.shape[0], world, n_world,
-                               need_uv=f_uv, need_combo=f_combo)
-        depth, tid_f, planes_f, pairs_f = _raster_vis_fused(
-            setup_f, extra_f, height, width, config, meta=meta,
-            init_depth=depth_d)
+        n_t = setup_f.edge.shape[0]
+        depth, tid_f, planes_f, pairs_f, covf_f = _raster_vis_fused(
+            setup_f,
+            lambda cidx: _fused_extra(scene, n_t, world, n_world,
+                                      tri_idx=cidx, need_uv=f_uv,
+                                      need_combo=f_combo),
+            height, width, config, meta=meta, init_depth=depth_d)
         attrs_f = surface_attributes_from_planes(
             scene, planes_f, config, var_ch=meta.tex_channels,
             flat_normal=meta.flat_normal)
@@ -729,7 +816,7 @@ def render_rows(
             attrs_f, shadowmap, scene, view, config,
             tiled_points=tiled_f, pallas_points=pallas_f)
         color = torch.where((tid_f >= 0)[..., None], fwd_color, color)
-        pair_overflow = pair_overflow + pairs_f.overflow
+        dropped(pairs_f, covf_f)
         live_pairs["forward"] = pairs_f.gbounds[1]
     else:
         depth = depth_d
@@ -750,11 +837,15 @@ def render_rows(
         "tri_id": tid_d,
         "forward_tri_id": tid_f,
         # Beyond the JAX package's aux (device scalars; reading them
-        # synchronises): live pairs dropped by the max_pairs caps, the
-        # live pair count of each raster pass, the deferred shadow factor,
-        # point lights dropped by the per-tile cap (the JAX package's
-        # validation counter "light_drops").
+        # synchronises): live pairs dropped by the max_pairs caps and live
+        # triangles dropped by the compaction caps (as in the JAX
+        # package's pair_overflow), the latter alone (the int 0 when no
+        # pass compacts), the live pair count
+        # of each raster pass, the deferred shadow factor, point lights
+        # dropped by the per-tile cap (the JAX package's validation counter
+        # "light_drops").
         "pair_overflow": pair_overflow,
+        "compact_overflow": compact_overflow,
         "light_drops": light_drops,
         "live_pairs": live_pairs,
         "shadow_factor": shadow_factor,

@@ -18,9 +18,9 @@ import torch
 from zeldaengine_tpu_torch.config import EngineConfig
 from zeldaengine_tpu_torch.math.transforms import (
     look_at,
+    mat4_product,
     perspective_vk,
     rotate_z,
-    matmul_f32,
 )
 from zeldaengine_tpu_torch.scene.world import World, LightDesc
 from zeldaengine_tpu_torch.utils.device import require_device
@@ -55,14 +55,15 @@ HOST_LEAVES = ("lights_count", "debug_view")
 
 def _view_matrices(eye, center, light_pos, fov_r, aspect, z_near, z_far,
                    roll_stage):
-    """The frame's three matrices (host, fp32)."""
+    """The frame's three matrices (host, fp32), bit for bit with the JAX
+    package's compiled ``_view_matrices`` on the CPU."""
     up = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32)
     cam_view = look_at(eye, center, up)
     cam_proj = perspective_vk(fov_r, aspect, z_near, z_far)
-    view_proj = matmul_f32(cam_proj, cam_view)
+    view_proj = mat4_product(cam_proj, cam_view)
     shadow_view = look_at(light_pos, torch.zeros(3, dtype=torch.float32), up)
     shadow_proj = perspective_vk(fov_r, 1.0, z_near, z_far)
-    shadow_space = matmul_f32(shadow_proj, shadow_view)
+    shadow_space = mat4_product(shadow_proj, shadow_view)
     model = rotate_z(np.float32(roll_stage))
     return view_proj, shadow_space, model
 

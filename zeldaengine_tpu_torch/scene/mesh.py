@@ -38,9 +38,27 @@ class Mesh:
         return self.positions.min(axis=0), self.positions.max(axis=0)
 
 
-def load_obj(path: str) -> Mesh:
-    """OBJ parser (v / vn / vt / f) with triangulation + dedup (pure
-    Python; the native C++ loader of the JAX package is not ported yet)."""
+def load_obj(path: str, backend: str = "native") -> Mesh:
+    """OBJ parser (v / vn / vt / f) with triangulation + dedup.
+
+    ``backend``: "native" (the C++ loader of ``zeldaengine_tpu_torch.native``,
+    built with g++ at first use; a failed build raises) or "python" (the
+    plain parser below, the same semantics for OBJs whose (position, uv)
+    index pairs name distinct vertices: the native loader dedups by index
+    pair, this one by value)."""
+    if backend == "native":
+        from zeldaengine_tpu_torch.native import load_obj_native
+
+        pos, nrm, uv, idx = load_obj_native(path)
+        mesh = Mesh(positions=pos, normals=nrm,
+                    colors=np.ones((pos.shape[0], 3), np.float32), uvs=uv,
+                    indices=idx)
+        if not np.abs(nrm).any():
+            _compute_normals_inplace(mesh)
+        return mesh
+    if backend != "python":
+        raise ValueError(f"backend={backend!r}: expected 'native' or "
+                         "'python'")
     positions, normals, uvs = [], [], []
     face_tuples = []  # (vi, ti, ni) per corner
     with open(path, "r", errors="replace") as f:
