@@ -12,7 +12,10 @@ one frame through each opt-in PCF backend that has a kernel; bench config
 reflection); bench config 1 (a forward-shaded sphere at 512x512); bench
 config 4 (16 spheres of 64,400 triangles baked by the native meshlet
 builder, 1,030,400 triangles in 14,004 meshlets, culled by frustum and cone
-tests and compacted every frame, at 1024x1024); and the
+tests and compacted every frame, at 1024x1024); bench config 5 through the
+engine shell (512x512, mailbox present with two frames in flight, a world
+streamed over the livelink every 50 ms); the editor protocol on the card
+(an edit presents one tick later under fifo); and the
 committed golden scene in debug views 0, 1, 4, 8 and 9, held against
 tests/golden/*.png, and its view 0 once more with both passes' point lights
 through the point-light kernel. Every kernel is replayed on the inputs a frame
@@ -21,7 +24,7 @@ device time (its calls replayed from a CUDA graph, ``ms``) and as events around
 eager calls (``eager_ms``, which includes the host's cost per call where that
 is the larger); 256x256 frames rendered through the kernels are held against
 the same frames rendered through the plain versions, and the engine shell
-presents two 1080p frames. Each phase prints one JSON line; the last line is
+presents two 1080p frames under fifo and two at ``Engine()``'s defaults. Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It needs a CUDA device, nvcc, PyTorch, NumPy and
 Pillow (the textured scene's and the goldens' PNGs).
@@ -38,6 +41,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 # One card is used: unless the caller chose the cards, only the first is
@@ -50,6 +54,8 @@ import torch  # noqa: E402
 from zeldaengine_tpu_torch import EngineConfig, TEST_CONFIG  # noqa: E402
 from zeldaengine_tpu_torch import native, ops  # noqa: E402
 from zeldaengine_tpu_torch.engine import Engine  # noqa: E402
+from zeldaengine_tpu_torch.livelink import (  # noqa: E402
+    editor_request, send_data_to_engine)
 from zeldaengine_tpu_torch.math import transforms  # noqa: E402
 from zeldaengine_tpu_torch.meshlet import build_meshlets  # noqa: E402
 from zeldaengine_tpu_torch.ops import _build  # noqa: E402
@@ -62,7 +68,7 @@ from zeldaengine_tpu_torch.passes import build_view_state, render_frame  # noqa:
 from zeldaengine_tpu_torch.passes import frame as frame_graph  # noqa: E402
 from zeldaengine_tpu_torch.scene import (  # noqa: E402
     CameraDesc, LightDesc, SceneBuilder, World, build_demo_scene,
-    build_textured_demo_scene, make_sphere)
+    build_textured_demo_scene, make_demo_world, make_sphere)
 from zeldaengine_tpu_torch.scene.demo import build_golden_scene  # noqa: E402
 from zeldaengine_tpu_torch.utils.image import read_png  # noqa: E402
 
@@ -117,6 +123,10 @@ GOLDEN_PATH = {"pair_raster": 1, "pair_raster_fused": 2, "pcf_taps": 2,
 # shadow_cone_cull).
 FRAME4_PATH = {"pair_raster": 1, "pair_raster_fused": 1, "pcf_taps": 1,
                "bilinear_tap": 1, "fma": 50}
+# Bench config 5 (the engine's frame of the demo world, deferred only, 16
+# point lights culled to 40x128 blocks): K1-K5 once per rendered frame.
+CONFIG5_KERNELS = ("pair_raster", "pair_raster_fused", "pcf_taps",
+                   "bilinear_tap", "point_lights")
 GOLDEN_VIEWS = {"final": 0, "basecolor": 1, "normals": 4, "shadow": 8,
                 "gbuffervis": 9}
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -696,11 +706,14 @@ def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
         return res
 
     def replay(name, wrapper, compare, cases):
-        """The frames of the paths: (path, what) each."""
+        """The frames of the paths: (path, what) each, each case with its
+        device time on those inputs (``graph_ms``)."""
         for path, what in cases:
             check(name in paths[path], f"{path}: {name} was not called")
             args, kw = paths[path][name]
             run(name, f"{path}: {what}", wrapper, args, kw, compare)
+            checks[name][-1]["ms"] = graph_ms(
+                lambda: wrapper(*args, backend="cuda", **kw), 10)
 
     def cmp_bits(k, p):
         k, p = (k[0], p[0]) if isinstance(k, tuple) else (k, p)
@@ -784,7 +797,8 @@ def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
         check(res["negative_zero_depths"] > 0, "no -0.0 depth won")
     replay("pair_raster", rc.rasterize_pairs, cmp_k1,
            [("frame3t", "shadow map"), ("golden", "shadow map, 8x128 tiles"),
-            ("frame4", "shadow map 512^2, 32x128 tiles, compacted casters")])
+            ("frame4", "shadow map 512^2, 32x128 tiles, compacted casters"),
+            ("config5", "shadow map 512^2, 32x128 tiles, engine tick")])
     call = lambda: rc.rasterize_pairs(  # noqa: E731
         pairs, ph, pw, backend="cuda", **kw)
     times = kernel_times(call, 10)
@@ -857,7 +871,8 @@ def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
             ("forward", "forward sphere, init_depth = far plane, 32x128 "
              "tiles"),
             ("golden", "forward sphere, init_depth = GBuffer depth"),
-            ("frame4", "GBuffer 1024^2, 32x128 tiles, compacted")])
+            ("frame4", "GBuffer 1024^2, 32x128 tiles, compacted"),
+            ("config5", "GBuffer 512^2, 32x128 tiles, engine tick")])
     call = lambda: rc.rasterize_pairs_fused(  # noqa: E731
         fpairs, fh, fw, backend="cuda", **fkw)
     times = kernel_times(call, 10)
@@ -940,7 +955,8 @@ def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
            [("frame3t", "deferred resolve"),
             ("forward", "forward pixels, shadow map of ones"),
             ("golden", "forward pixels"),
-            ("frame4", "deferred resolve 1024^2, 512^2 map")])
+            ("frame4", "deferred resolve 1024^2, 512^2 map"),
+            ("config5", "deferred resolve 512^2, 512^2 map")])
     call = lambda: pcf_cuda.compute_pcf_vmem(  # noqa: E731
         sm, sc, backend="cuda", **pkw)
     times = kernel_times(call, 20)
@@ -975,7 +991,7 @@ def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
         cmp_small)
     replay("bilinear_tap", window_tap.sample_base_window, cmp_bits,
            [("frame3t", "skydome"), ("golden", "skydome"),
-            ("frame4", "skydome 1024^2")])
+            ("frame4", "skydome 1024^2"), ("config5", "skydome 512^2")])
     call = lambda: window_tap.sample_base_window(  # noqa: E731
         *targs, backend="cuda")
     times = kernel_times(call, 20)
@@ -1019,7 +1035,8 @@ def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
         (*[c.contiguous() for c in cut], largs[7], largs[8][:n_by].contiguous(),
          largs[9][:n_by].contiguous()), lkw, cmp_lights)
     replay("point_lights", lighting_cuda.point_lighting, cmp_bits,
-           [("frame3t", "16 lights, textured GBuffer")])
+           [("frame3t", "16 lights, textured GBuffer"),
+            ("config5", "16 lights, 512^2, engine tick")])
     # The golden scene with the kernel asked for: the deferred pass's call,
     # then the forward sphere's, its lists culled against its own surface.
     g_calls = paths["golden_points"]["all:point_lights"]
@@ -1531,6 +1548,216 @@ def phase_frame4():
     return captured, launches, warm + timed
 
 
+def config5() -> EngineConfig:
+    """bench.py's config 5 (bench.py:345-347), nothing changed: the
+    engine's defaults beside it (32x128 tiles, two frames in flight,
+    mailbox present)."""
+    return EngineConfig(width=512, height=512, shadowmap_dim=512,
+                        texture_size=128, cubemap_size=64,
+                        background_size=128, max_point_lights=16)
+
+
+def config5_world(camera=None) -> World:
+    """bench.py's config-5 world: the demo world with 200 instances of
+    each grass species, the camera at ``camera`` when given."""
+    w = make_demo_world()
+    w.object_descs[3].instance_count = 200
+    w.object_descs[4].instance_count = 200
+    if camera is not None:
+        w.main_camera.position = np.float32(camera)
+    return w
+
+
+def phase_config5():
+    """Bench config 5 as bench.py:336-408 runs it, on the port: the
+    engine at its present defaults (mailbox, two frames in flight) with
+    its livelink on a free port, a streamer thread pushing a fresh world
+    every 50 ms with the camera at (5 + 0.1 i, 5, 5); one warm tick, 32
+    timed ticks, a device synchronise. Checks: a push reloaded, camera
+    pushes rebuilt nothing, every presented frame is uint8 512x512x3 and
+    not flat, K1-K5 once per rendered frame, and a frame after a camera
+    push differs from the one before. Then one tick's arguments noted for
+    phase kernels, one tick profiled, and Engine.profile_passes."""
+    config = config5()
+    check((config.frames_in_flight, config.present_mode, config.tile_h,
+           config.tile_w) == (2, "mailbox", 32, 128),
+          "config 5 is not at the engine's defaults")
+    t0 = time.time()
+    engine = Engine(config=config, world=config5_world(), livelink_port=0)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    engine.start()
+    try:
+        return _drive_config5(engine, config, build_s)
+    finally:
+        engine.stop()
+
+
+def _drive_config5(engine, config, build_s):
+    port = engine.server.port
+    meta = engine.meta
+    view = build_view_state(engine.world, config)
+    check(frame_graph.point_light_route(view, config) == "kernel",
+          "config 5's point lights do not take the kernel")
+    check(not meta.has_forward and meta.enable_skydome,
+          "config 5 is not a deferred frame with a skydome")
+    engine.tick()  # warm
+    scene0 = engine.scene
+    stop = threading.Event()
+    pushes = []
+
+    def streamer():
+        i = 0
+        while not stop.is_set():
+            w = config5_world(camera=(5.0 + 0.1 * i, 5.0, 5.0))
+            try:
+                send_data_to_engine(w.to_json(), port=port)
+            except OSError as e:
+                pushes.append(e)
+                return
+            pushes.append(i)
+            i += 1
+            time.sleep(0.05)
+
+    thread = threading.Thread(target=streamer, daemon=True)
+    thread.start()
+    n = 32
+    rendered0, dropped0 = engine.stats.frame_index, engine.stats.presents_dropped
+    ops.reset_kernel_launch_counts()
+    frames, tick_frame_ms = [], []
+    t0 = time.time()
+    for _ in range(n):
+        frames.append(engine.tick())
+        tick_frame_ms.append(engine.stats.frame_ms)
+    torch.cuda.synchronize()
+    total = time.time() - t0
+    launches = ops.kernel_launch_counts()
+    stop.set()
+    thread.join(timeout=10.0)
+    check(not thread.is_alive(), "the streamer did not stop")
+    check(not any(isinstance(p, OSError) for p in pushes),
+          f"config5: a push failed: {pushes[-1]}")
+    rendered = engine.stats.frame_index - rendered0
+    check(rendered == n, f"{rendered} frames rendered for {n} ticks")
+    # Kernel fma's count follows the setup's passes (as in config 3's
+    # frame): a whole number of launches a frame.
+    check_launches(launches, dict({k: n for k in CONFIG5_KERNELS},
+                                  fma=launches["fma"]), "config5")
+    check(launches["fma"] % n == 0, f"config5: fma {launches['fma']}")
+    check(engine.stats.reloads >= 1, "config5: no streamed world reloaded")
+    check(engine.scene is scene0, "config5: a camera push rebuilt the scene")
+    for img in frames:
+        check(img.dtype == np.uint8 and img.shape == (512, 512, 3),
+              f"config5 presented {img.dtype} {img.shape}")
+        check(float(img.std()) > 5.0, "config5: a presented frame is flat")
+    reloads = engine.stats.reloads
+    # A frame after one more camera push differs from the one before it
+    # (mailbox: the newest fetched frame, a few ticks at most).
+    before = engine.tick()
+    send_data_to_engine(config5_world(camera=(9.0, 2.0, 6.0)).to_json(),
+                        port=port)
+    deadline = time.time() + 10.0
+    while engine.server._pending is None and time.time() < deadline:
+        time.sleep(0.005)
+    moved = False
+    for _ in range(8):
+        img = engine.tick()
+        torch.cuda.synchronize()
+        if not np.array_equal(img, before):
+            moved = True
+            break
+        time.sleep(0.02)
+    check(moved, "config5: the frame after a camera push did not change")
+    check(engine.scene is scene0, "config5: a camera push rebuilt the scene")
+    # The kernel arguments of the engine's frame for phase kernels (the
+    # frame alone: the view's matrices are host work), one tick profiled.
+    view = build_view_state(engine.world, config)
+    with recorded_calls({}) as captured:
+        render_frame(engine.scene, view, engine.meta, config)
+    torch.cuda.synchronize()
+    busy = device_profile(engine.tick, "profile_config5")
+    pass_ms = engine.profile_passes(reps=5)
+    # frame_ms: the median over the timed ticks of FrameStats.frame_ms
+    # (host time of render plus present; dispatch time under mailbox).
+    emit("config5", fps=n / total,
+         frame_ms=statistics.median(tick_frame_ms),
+         frame_ms_all=tick_frame_ms, frame_ms_last_tick=tick_frame_ms[-1],
+         tick_ms_mean=total / n * 1e3, ticks=n, seconds=total,
+         reloads=reloads, pushes=len(pushes),
+         presents_dropped=engine.stats.presents_dropped - dropped0,
+         triangles=engine.stats.triangles, instances=meta.num_instances,
+         point_lights=int(view.lights_count[1]),
+         tile=(config.tile_h, config.tile_w),
+         launches_per_frame={k: v / n for k, v in launches.items()},
+         device_busy_ms_one_tick=busy["device_busy_ms"],
+         device_launches_one_tick=busy["device_launches"],
+         pass_ms=pass_ms, scene_build_s=round(build_s, 2),
+         mean_level=float(frames[-1].mean()))
+    return captured, launches, n
+
+
+def phase_editor() -> None:
+    """The editor protocol on the card, config 5 under fifo with two
+    frames in flight and the validation counters on: GetOutliner; the
+    directional light's intensity set to 0, which the tick right after
+    the edit does not present yet (one frame in flight ahead of it) and
+    the tick after does (darker by more than 1 on the u8 scale), then
+    restored; an object's instance count, which rebuilds the scene;
+    GetStats with the validation counters."""
+    config = config5().replace(present_mode="fifo", validation=True)
+    engine = Engine(config=config, world=config5_world(), livelink_port=0)
+    engine.start()
+    try:
+        port = engine.server.port
+        out = editor_request({"Command": "GetOutliner"}, port=port)
+        check(out["Status"] == "ok" and len(out["Objects"]) == 5
+              and out["SceneTriangles"] == engine.meta.num_triangles,
+              f"editor: GetOutliner {out}")
+        engine.tick()
+        before = engine.tick()
+        intensity = engine.world.directional_lights[0].intensity
+        r = editor_request({"Command": "SetDetails",
+                            "Target": "DirectionalLight/0",
+                            "Values": {"intensity": 0.0}}, port=port)
+        check(r["Status"] == "ok" and r["Applied"] == ["intensity"],
+              f"editor: SetDetails {r}")
+        pending = engine.tick()
+        after = engine.tick()
+        levels = [float(x.mean()) for x in (before, pending, after)]
+        check(levels[1] >= levels[0] - 1.0,
+              f"editor: the edit presented at once (means {levels})")
+        check(levels[2] < levels[0] - 1.0,
+              f"editor: the edit did not present one tick later ({levels})")
+        editor_request({"Command": "SetDetails",
+                        "Target": "DirectionalLight/0",
+                        "Values": {"intensity": intensity}}, port=port)
+        engine.tick()
+        restored = float(engine.tick().mean())
+        check(abs(restored - levels[0]) <= 1.0,
+              f"editor: restored mean {restored} against {levels[0]}")
+        tris = engine.meta.num_triangles
+        r = editor_request({"Command": "SetDetails", "Target": "Object/1",
+                            "Values": {"instance_count": 3}}, port=port)
+        check(r["Status"] == "ok", f"editor: SetDetails Object/1 {r}")
+        engine.tick()
+        check(engine.meta.num_triangles > tris,
+              "editor: the object edit did not rebuild")
+        stats = editor_request({"Command": "GetStats"}, port=port)["Stats"]
+        check(set(stats["validation"]) == {
+            "nonfinite_color", "nonfinite_shadowmap", "light_drops",
+            "pair_overflow", "oversized_tris"},
+            f"editor: validation counters {stats['validation']}")
+        check(stats["validation"]["nonfinite_color"] == 0
+              and stats["validation"]["nonfinite_shadowmap"] == 0,
+              f"editor: nonfinite values {stats['validation']}")
+        emit("editor", mean_levels=levels, restored_level=restored,
+             triangles_before=tris, triangles_after=stats["triangles"],
+             reloads=stats["reloads"], validation=stats["validation"],
+             frames=stats["frame_index"])
+    finally:
+        engine.stop()
+
+
 def phase_golden():
     """The committed golden scene (tests/test_golden.py::_build, built by
     the port) on the card through the kernels, in debug views 0, 1, 4, 8
@@ -1711,21 +1938,18 @@ def phase_pcf_backends(scene, meta, world, config, captured: dict) -> dict:
     return launches_sum
 
 
-def phase_profile(scene, meta, world, config, phase="profile") -> dict:
-    """Where one frame's device time goes: the ten device operations with
-    the largest summed time (torch.profiler), beside the frame's total."""
+def device_profile(fn, phase: str) -> dict:
+    """Where one call of ``fn`` (ending in a synchronise) spends device
+    time: the ten device operations with the largest summed time
+    (torch.profiler), beside the total, emitted under ``phase``."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    view = build_view_state(world, config, time=0.7, roll_light=0.3)
-    render_frame(scene, view, meta, config)
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        render_frame(scene, view, meta, config)
+        fn()
         torch.cuda.synchronize()
-
-    from torch.autograd import DeviceType
 
     def dev_us(evt):
         return float(getattr(evt, "self_device_time_total",
@@ -1749,6 +1973,16 @@ def phase_profile(scene, meta, world, config, phase="profile") -> dict:
          gather_rows=[{"name": e.key[:70], "ms": dev_us(e) / 1e3,
                        "calls": e.count} for e in gathers[:8]])
     return busy
+
+
+def phase_profile(scene, meta, world, config, phase="profile") -> dict:
+    """Where one frame's device time goes (``device_profile`` of one
+    ``render_frame`` after a warm one)."""
+    view = build_view_state(world, config, time=0.7, roll_light=0.3)
+    render_frame(scene, view, meta, config)
+    torch.cuda.synchronize()
+    return device_profile(lambda: render_frame(scene, view, meta, config),
+                          phase)
 
 
 def phase_frame_vs_plain() -> None:
@@ -1787,11 +2021,15 @@ def phase_frame_vs_plain() -> None:
 def phase_engine() -> None:
     """The engine shell, the entry point behind ``python -m
     zeldaengine_tpu_torch.engine``, at its defaults: build the default demo
-    world at 1080p, tick twice, check what it presents and that every tick
-    went through K1-K5 once; hold K1, K2 and K6 at the engine's tiles
-    against their plain versions."""
+    world at 1080p, tick twice with one frame in flight under fifo (the
+    light ring rolling: the 'L' key), check what it presents and that every
+    tick went through K1-K5 once; hold K1, K2 and K6 at the engine's tiles
+    against their plain versions. Then two ticks of ``Engine()`` at its
+    own defaults (EngineConfig() as it is: mailbox, two frames in flight;
+    livelink on a free port), through K1-K5 once each."""
     engine = Engine(EngineConfig(width=1920, height=1080, frames_in_flight=1,
-                                 present_mode="fifo"))
+                                 present_mode="fifo"), livelink_port=None)
+    engine.toggle_light_roll()
     ops.reset_kernel_launch_counts()
     frames = [engine.tick() for _ in range(2)]
     launches = ops.kernel_launch_counts()
@@ -1842,10 +2080,32 @@ def phase_engine() -> None:
     k6.update(tile=(cfg.tile_h, cfg.tile_w), ms=graph_ms(
         lambda: pcf_window.compute_pcf_pallas(e_sm, e_sc, backend="cuda",
                                               **kkw), 20))
+    defaults = Engine(livelink_port=0)
+    check((defaults.config.frames_in_flight, defaults.config.present_mode)
+          == (2, "mailbox"), "Engine() is not at the reference's defaults")
+    defaults.start()
+    try:
+        ops.reset_kernel_launch_counts()
+        shown = [defaults.tick() for _ in range(2)]
+        torch.cuda.synchronize()
+        default_launches = ops.kernel_launch_counts()
+    finally:
+        defaults.stop()
+    check_launches(default_launches,
+                   {k: 2 * v for k, v in MAIN_PATH.items()},
+                   "engine at its defaults")
+    for img in shown:
+        check(img.dtype == np.uint8 and img.shape == (1080, 1920, 3)
+              and float(img.std()) > 5.0,
+              f"Engine() presented {img.dtype} {img.shape}")
     emit("engine", ticks=2, frame_ms=engine.stats.frame_ms,
          triangles=engine.stats.triangles, launches=launches,
          mean_level=float(frames[-1].mean()), pair_raster=k1,
-         pair_raster_fused=k2, pcf_window=k6)
+         pair_raster_fused=k2, pcf_window=k6,
+         defaults=dict(ticks=2, frame_ms=defaults.stats.frame_ms,
+                       presents_dropped=defaults.stats.presents_dropped,
+                       livelink_port=defaults.server.port,
+                       launches=default_launches))
 
 
 def main() -> None:
@@ -1880,7 +2140,8 @@ def main() -> None:
     paths = {"frame": captured}
     for path, phase in (("frame3t", phase_frame3t),
                         ("forward", phase_forward),
-                        ("frame4", phase_frame4)):
+                        ("frame4", phase_frame4),
+                        ("config5", phase_config5)):
         noted, counts, n = timed(path, phase)
         paths[path], path_launches[path] = noted, per_frame(counts, n)
     for path, (c, counts) in zip(("golden", "golden_points"),
@@ -1891,6 +2152,7 @@ def main() -> None:
     check(not FAILURES, "; ".join(FAILURES))
     timed("frame_vs_plain", phase_frame_vs_plain)
     timed("engine", phase_engine)
+    timed("editor", phase_editor)
     emit("done", seconds=round(time.time() - t0, 1), phase_seconds=seconds)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

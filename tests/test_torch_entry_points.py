@@ -58,10 +58,14 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     with pytest.raises(RuntimeError, match="cuda"):
         Engine(TEST_CONFIG)
     with pytest.raises(RuntimeError, match="cuda"):
+        Engine()  # the JAX package's defaults: mailbox, livelink on 8080
+    with pytest.raises(RuntimeError, match="cuda"):
         scene_from_numpy({})
 
 
 def test_engine_cli_without_a_card_fails_and_chip_smoke_fails():
+    """The engine's and the viewer's CLIs and chip_smoke.py fail without a
+    card."""
     import torch
 
     if torch.cuda.is_available():
@@ -69,16 +73,23 @@ def test_engine_cli_without_a_card_fails_and_chip_smoke_fails():
     res = _run("from zeldaengine_tpu_torch.engine import main; "
                "main(['--frames', '1', '--width', '128', '--height', '128'])")
     assert res.returncode != 0 and "cuda" in res.stderr
+    viewer = subprocess.run(
+        [sys.executable, "-m", "zeldaengine_tpu_torch.viewer", "--port", "0",
+         "--livelink-port", "0", "--width", "64", "--height", "64"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=300)
+    assert viewer.returncode != 0 and "cuda" in viewer.stderr
     smoke = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
                            capture_output=True, text=True, timeout=300)
     assert smoke.returncode != 0
     assert '"ok": true' not in smoke.stdout
 
 
-def test_engine_renders_on_the_cpu_when_asked():
+def test_engine_renders_on_the_cpu_when_asked(tmp_path):
     from zeldaengine_tpu_torch import TEST_CONFIG
-    from zeldaengine_tpu_torch.engine import Engine
+    from zeldaengine_tpu_torch.engine import Engine, main
     from zeldaengine_tpu_torch.scene import demo_world
+    from zeldaengine_tpu_torch.utils.image import read_png
 
     cfg = TEST_CONFIG.replace(frames_in_flight=1, present_mode="fifo",
                               point_light_kernel="unroll")
@@ -87,6 +98,13 @@ def test_engine_renders_on_the_cpu_when_asked():
     assert img.shape == (128, 128, 3) and img.dtype.name == "uint8"
     assert eng.stats.frame_index == 1 and eng.stats.frame_ms > 0
     assert img.std() > 1
+    # The CLI at its defaults (mailbox, two frames in flight, livelink
+    # started on a free port) on a saved world, three frames to a PNG.
+    world, out = str(tmp_path / "World.json"), str(tmp_path / "f.png")
+    demo_world(grass=20, rocks=2).save(world)
+    main(["--frames", "3", "--width", "128", "--height", "128", "--device",
+          "cpu", "--port", "0", "--world", world, "--out", out])
+    assert read_png(out).shape[:2] == (128, 128)
 
 
 def test_bad_raster_value_and_cuda_on_cpu_raise():

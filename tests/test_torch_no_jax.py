@@ -39,11 +39,16 @@ def test_package_layout_is_there():
                  "zeldaengine_tpu_torch/meshlet/build.py",
                  "zeldaengine_tpu_torch/meshlet/io.py",
                  "zeldaengine_tpu_torch/ops/culling.py",
-                 "zeldaengine_tpu_torch/tools/meshletgen.py"):
+                 "zeldaengine_tpu_torch/tools/meshletgen.py",
+                 "zeldaengine_tpu_torch/livelink/server.py",
+                 "zeldaengine_tpu_torch/livelink/client.py",
+                 "zeldaengine_tpu_torch/livelink/editor.py",
+                 "zeldaengine_tpu_torch/viewer.py",
+                 "zeldaengine_tpu_torch/profiling.py"):
         assert want in files
     assert os.path.exists(os.path.join(PKG, "native", "zeldanative.cpp"))
     # The scan below covers the new sub-packages as their own cases.
-    assert {"native", "meshlet", "tools"} <= set(_groups())
+    assert {"native", "meshlet", "tools", "livelink"} <= set(_groups())
     csrc = set(os.listdir(os.path.join(PKG, "csrc")))
     assert {"pair_raster.cu", "pair_raster_fused.cu", "pcf_taps.cu",
             "bilinear_tap.cu", "point_lights.cu", "pcf_window.cu",

@@ -41,10 +41,8 @@ _UNPORTED = {
     ],
     "passes": [
         (dict(env_merge=True), "envtap"),
-        (dict(wireframe=True), "wireframe"),
         (dict(skydome_mode="mesh"), "skydome_mesh"),
         (dict(enable_background=True), "background"),
-        (dict(validation=True), "validation"),
     ],
     "shading": [
         (dict(reflection_half=True), "half"),

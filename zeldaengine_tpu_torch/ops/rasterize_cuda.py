@@ -156,6 +156,32 @@ def remap_pair_tri(pairs: PairedTriangles, idx: torch.Tensor,
     return pairs._replace(pair_tri=idx_pad[pairs.pair_tri.long()])
 
 
+def count_oversized(setup: TriangleSetup, width: int, height: int,
+                    tile_h: int, tile_w: int, expand: int) -> torch.Tensor:
+    """Validation counter: triangles that fall into the GLOBAL bucket
+    every tile walks - bbox covers more than ``expand`` tiles AND more
+    than SUPER_EXPAND supertiles (the middle tier absorbs medium
+    triangles). A () int32 tensor."""
+    bbox = setup.bbox
+    n_tx = -(-width // tile_w)
+    n_ty = -(-height // tile_h)
+    tx0 = torch.clamp(torch.floor(bbox[:, 0] / tile_w), 0, n_tx - 1)
+    ty0 = torch.clamp(torch.floor(bbox[:, 1] / tile_h), 0, n_ty - 1)
+    tx1 = torch.clamp(torch.ceil(bbox[:, 2] / tile_w) - 1.0, 0, n_tx - 1)
+    ty1 = torch.clamp(torch.ceil(bbox[:, 3] / tile_h) - 1.0, 0, n_ty - 1)
+    live = (setup.valid & (bbox[:, 2] > bbox[:, 0])
+            & (bbox[:, 3] > bbox[:, 1]) & (bbox[:, 2] > 0)
+            & (bbox[:, 0] < width))
+    ncov = (tx1 - tx0 + 1.0) * (ty1 - ty0 + 1.0)
+    super_w = _super_w(tile_w)
+    super_h = _super_h(tile_h)
+    ncov_s = ((torch.floor(tx1 / super_w) - torch.floor(tx0 / super_w) + 1.0)
+              * (torch.floor(ty1 / super_h) - torch.floor(ty0 / super_h)
+                 + 1.0))
+    return torch.sum(live & (ncov > expand)
+                     & (ncov_s > SUPER_EXPAND)).to(torch.int32)
+
+
 def build_pairs(
     setup: TriangleSetup,
     width: int,

@@ -25,7 +25,9 @@ tiled loop) -> cube reflection (constant-lod table, half-resolution
 mip-pair cube or quad atlas) -> forward objects, z-tested against the
 GBuffer depth (``pair_raster_fused`` with an initial depth, their own
 light cull and PCF) -> analytic skydome (``bilinear_tap``), or one of the
-debug views 1-9 instead of the lit frame. Everything else the JAX
+debug views 1-9 instead of the lit frame. Opt-in: the wireframe edge
+mask (``config.wireframe``) and the validation counters
+(``config.validation``, ``aux["validation"]``). Everything else the JAX
 package's frame can do raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` item; nothing is silently served by another path.
 
@@ -56,6 +58,7 @@ from zeldaengine_tpu_torch.ops.rasterize import _pixel_grid, triangle_setup
 from zeldaengine_tpu_torch.ops.rasterize_cuda import (
     build_pairs,
     compact_setup,
+    count_oversized,
     fused_extra_width,
     rasterize_pairs,
     rasterize_pairs_fused,
@@ -96,14 +99,11 @@ def unported_reasons(scene: GpuScene, view, meta: SceneMeta,
             why.append(f"{what} is not ported yet (ROADMAP.md {item})")
 
     no(config.env_merge, "env_merge", "A4: ops/envtap.py")
-    no(config.wireframe, "wireframe", "A5: passes/frame.py _apply_wireframe")
     no(config.skydome_mode != "analytic",
        f"skydome_mode={config.skydome_mode!r}",
        "A5: passes/frame.py _skydome_mesh")
     no(config.enable_background, "enable_background (the background pass)",
        "A5: passes/frame.py background")
-    no(config.validation, "validation counters",
-       "A5: passes/frame.py validation")
     no(config.pair_align, "pair_align", "A2: build_pairs align")
     no(config.raster_early_out, "raster_early_out",
        "B: K1 occlusion early-out")
@@ -117,6 +117,46 @@ def unported_reasons(scene: GpuScene, view, meta: SceneMeta,
        f"pcf_backend={config.pcf_backend!r} (a PCF variant without a "
        "kernel)", "A9: ops/shadow.py variants")
     return why
+
+
+def point_light_route(view, config: EngineConfig):
+    """How a frame shades its point lights: "kernel" (culled to
+    (point_block_h, 128) blocks, shaded by kernel ``point_lights``),
+    "tiled" (culled to light tiles, the plain tiled loop) or None (the
+    plain loop over every slot). The JAX package's "auto" takes the kernel
+    on an accelerator only; the port's device is the card, so "auto"
+    takes it on every device (the plain version serves CPU tensors).
+    "unroll" is the plain loop, or the tiled loop once the table reaches
+    tiled_lights_min slots."""
+    n_slots = view.point_lights.shape[0]
+    if (config.point_light_kernel in ("pallas", "auto")
+            and n_slots >= config.point_kernel_min
+            and config.width % 128 == 0):
+        return "kernel"
+    if (n_slots >= config.tiled_lights_min
+            and config.width % config.light_tile_w == 0):
+        return "tiled"
+    return None
+
+
+def cull_lights(view, config: EngineConfig, route, attrs):
+    """The point lights of one pass culled against its visible surface
+    (``attrs.world_pos`` / ``covered``) for ``route``: (tiled_points,
+    pallas_points, light drops), Nones where the route takes no cull."""
+    if route is None:
+        return None, None, None
+    if route == "kernel":
+        tile_h, tile_w = config.point_block_h, 128
+    else:
+        tile_h, tile_w = config.light_tile_h, config.light_tile_w
+    tile_idx, tile_cnt, drops = cull_point_lights_tiled(
+        view.point_lights, int(view.lights_count[1]), view, config.width,
+        config.height, tile_h, tile_w, config.max_tile_lights,
+        vp_h=config.height, world_pos=attrs.world_pos,
+        covered=attrs.covered)
+    if route == "kernel":
+        return None, (tile_idx, tile_cnt, tile_h, config.raster), drops
+    return (tile_idx, tile_cnt, tile_h, tile_w), None, drops
 
 
 def _pad_up(n: int, m: int) -> int:
@@ -247,6 +287,21 @@ def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
         pairs, ph, pw, init_depth=init_depth, backend=config.raster, **kw)
     return (depth[:height, :width], tid[:height, :width],
             planes[:, :height, :width], pairs, covf)
+
+
+def _apply_wireframe(attrs: SurfaceAttributes, depth, tid,
+                     config: EngineConfig, fallback_depth=None):
+    """ENABLE_WIREFRAME (polygonMode LINE): keep only edge pixels
+    covered; interiors fall through to whatever is behind (the previous
+    pass's depth, else sky/bg), matching hardware LINE rasterization of
+    the same triangles."""
+    edge = attrs.covered & (attrs.bary_min < config.wireframe_threshold)
+    attrs = attrs._replace(covered=edge)
+    fb = (torch.ones_like(depth) if fallback_depth is None
+          else fallback_depth)
+    depth = torch.where(edge, depth, fb)
+    tid = torch.where(edge, tid, torch.full_like(tid, -1))
+    return attrs, depth, tid
 
 
 def _raster_depth(setup, dim, config: EngineConfig):
@@ -642,39 +697,18 @@ def render_rows(
     width = config.width
     height = config.height
 
-    # ---- point lights culled to screen tiles. The JAX package's "auto"
-    # takes the point-light kernel on an accelerator only; the port's
-    # device is the card, so "auto" takes it on every device (the plain
-    # version serves CPU tensors). "unroll" is the plain loop, or the
-    # tiled loop once the table reaches tiled_lights_min slots.
-    n_slots = view.point_lights.shape[0]
-    use_kernel_points = (
-        config.point_light_kernel in ("pallas", "auto")
-        and n_slots >= config.point_kernel_min and width % 128 == 0)
-    use_tiled = (not use_kernel_points
-                 and n_slots >= config.tiled_lights_min
-                 and width % config.light_tile_w == 0)
+    # ---- point lights culled to screen tiles, once per pass.
+    route = point_light_route(view, config)
     light_drops = torch.zeros((), dtype=torch.int32, device=dev)
 
     def culled_lights(attrs):
         """(tiled_points, pallas_points) of one pass: the point lights
         culled against that pass's own visible surface."""
         nonlocal light_drops
-        if use_kernel_points:
-            tile_h, tile_w = config.point_block_h, 128
-        elif use_tiled:
-            tile_h, tile_w = config.light_tile_h, config.light_tile_w
-        else:
-            return None, None
-        tile_idx, tile_cnt, drops = cull_point_lights_tiled(
-            view.point_lights, int(view.lights_count[1]), view, width,
-            height, tile_h, tile_w, config.max_tile_lights,
-            vp_h=config.height, world_pos=attrs.world_pos,
-            covered=attrs.covered)
-        light_drops = light_drops + drops
-        if use_kernel_points:
-            return None, (tile_idx, tile_cnt, tile_h, config.raster)
-        return (tile_idx, tile_cnt, tile_h, tile_w), None
+        tiled, pallas, drops = cull_lights(view, config, route, attrs)
+        if drops is not None:
+            light_drops = light_drops + drops
+        return tiled, pallas
 
     # ---- vertex stage (Base.vert / BaseInstanced.vert / Shadowmap*.vert)
     # Positions and normals through the model matrix in one transform.
@@ -775,6 +809,9 @@ def render_rows(
         attrs_d = surface_attributes_from_planes(
             scene, planes_d, config, var_ch=meta.tex_channels,
             flat_normal=meta.flat_normal)
+        if config.wireframe:
+            attrs_d, depth_d, tid_d = _apply_wireframe(
+                attrs_d, depth_d, tid_d, config)
         gbuf = pack_gbuffer(attrs_d, depth_d)
         # ---- 4a. deferred lighting (fullscreen, no depth test); the
         # lights are culled against the GBuffer's own visible surface.
@@ -811,6 +848,9 @@ def render_rows(
         attrs_f = surface_attributes_from_planes(
             scene, planes_f, config, var_ch=meta.tex_channels,
             flat_normal=meta.flat_normal)
+        if config.wireframe:
+            attrs_f, depth, tid_f = _apply_wireframe(
+                attrs_f, depth, tid_f, config, fallback_depth=depth_d)
         tiled_f, pallas_f = culled_lights(attrs_f)
         fwd_color = forward_shade(
             attrs_f, shadowmap, scene, view, config,
@@ -850,5 +890,23 @@ def render_rows(
         "live_pairs": live_pairs,
         "shadow_factor": shadow_factor,
     }
+    if config.validation:
+        # The validation-layer analogue (VK_LAYER_KHRONOS_validation +
+        # debug messenger, ZeldaEngine.cpp:799-829): opt-in per-frame
+        # counters for conditions that otherwise fail silently.
+        val = {
+            "nonfinite_color": torch.sum(
+                ~torch.isfinite(color)).to(torch.int32),
+            "nonfinite_shadowmap": torch.sum(
+                ~torch.isfinite(shadowmap)).to(torch.int32),
+            "light_drops": light_drops.to(torch.int32),
+            # Live pairs dropped by the max_pairs capacity slices.
+            "pair_overflow": pair_overflow,
+        }
+        if meta.has_deferred:
+            val["oversized_tris"] = count_oversized(
+                setup, width, config.height, config.tile_h, config.tile_w,
+                config.pair_expand)
+        aux["validation"] = val
     color = torch.clamp(color, 0.0, 1.0)
     return color, aux
