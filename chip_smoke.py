@@ -18,7 +18,11 @@ streamed over the livelink every 50 ms); the editor protocol on the card
 (an edit presents one tick later under fifo); and the
 committed golden scene in debug views 0, 1, 4, 8 and 9, held against
 tests/golden/*.png, and its view 0 once more with both passes' point lights
-through the point-light kernel. Every kernel is replayed on the inputs a frame
+through the point-light kernel; and the remaining frame options on config
+3's frame (phase ``options``: the dome mesh through the pair rasterizer with
+ids and an initial depth, the background pass, the merged environment tap,
+the occlusion early-out on aligned pair bins, config 3t's half-resolution
+reflection, every ablation flag). Every kernel is replayed on the inputs a frame
 gave it and held against its plain PyTorch version on the card, and timed as
 device time (its calls replayed from a CUDA graph, ``ms``) and as events around
 eager calls (``eager_ms``, which includes the host's cost per call where that
@@ -127,6 +131,34 @@ FRAME4_PATH = {"pair_raster": 1, "pair_raster_fused": 1, "pcf_taps": 1,
 # point lights culled to 40x128 blocks): K1-K5 once per rendered frame.
 CONFIG5_KERNELS = ("pair_raster", "pair_raster_fused", "pcf_taps",
                    "bilinear_tap", "point_lights")
+# Phase options (config 3's frame, its scene with a seeded background image
+# and the merged environment table): the frames of the remaining frame
+# options, each with its launches per frame. The dome mesh adds one K1
+# launch (ids, the frame's depth as initial depth) and 7 of kernel fma
+# (its vertex transforms and setup); the background rect one K4 launch;
+# the merged tap replaces both K4 launches; the ablations drop K3 ("nopcf"),
+# K5 ("nolight") and K4 ("nosky").
+ABLATE_ALL = ("nopcf pcfcoords pcfbuild nolight nodirect norefl reflgather "
+              "noswitch nosky lodprobe notex noattrs")
+OPTION_FRAMES = {
+    "mesh_skydome_background": (
+        dict(skydome_mode="mesh", enable_background=True),
+        dict(MAIN_PATH, pair_raster=2, fma=23)),
+    "ysort_off": (dict(raster_ysort=False), MAIN_PATH),
+    "early_out_aligned": (
+        dict(raster_ysort=False, raster_early_out=True, pair_align=True),
+        MAIN_PATH),
+    "background": (dict(enable_background=True),
+                   dict(MAIN_PATH, bilinear_tap=2)),
+    "env_merge_background": (dict(env_merge=True, enable_background=True),
+                             dict(MAIN_PATH, bilinear_tap=0)),
+    "textured_reflection_half": (dict(reflection_half=True), MAIN_PATH),
+    "all_ablations": (dict(ablate=ABLATE_ALL),
+                      dict(MAIN_PATH, pcf_taps=0, bilinear_tap=0,
+                           point_lights=0)),
+}
+# Scenes built by one phase for another (config 3t's, for phase options).
+SCENES = {}
 GOLDEN_VIEWS = {"final": 0, "basecolor": 1, "normals": 4, "shadow": 8,
                 "gbuffervis": 9}
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1375,6 +1407,7 @@ def phase_frame3t():
                               for k, v in MAIN_PATH.items()}, "frame3t")
     covered, sky, sf = check_image(image, aux)
     captured, _, _ = noted_frame(scene, meta, world, config)
+    SCENES["frame3t"] = (scene, meta, world, config)
     busy = phase_profile(scene, meta, world, config, phase="profile_frame3t")
     emit("frame3t", frame_ms=statistics.median(frame_ms),
          frame_ms_all=frame_ms, host_frame_ms=statistics.median(host_ms),
@@ -1938,6 +1971,280 @@ def phase_pcf_backends(scene, meta, world, config, captured: dict) -> dict:
     return launches_sum
 
 
+@contextlib.contextmanager
+def seeded_images(seed: int = 31):
+    """Every scene built while active gets a background image made from
+    ``seed`` (``SceneBuilder.set_background_texture``; the demo world's
+    own background file is not in the repository) and a smooth seeded
+    sky (its own is uniform, so the dome mesh's uv would not show)."""
+    build = SceneBuilder.build
+
+    def with_background(self, *args, **kw):
+        size = self.config.background_size
+        rng = np.random.default_rng(seed)
+        self.set_background_texture(
+            rng.random((size, size, 4)).astype(np.float32))
+        phase = rng.uniform(0.0, 2.0 * np.pi, (2, 4))
+        t = np.arange(size, dtype=np.float64) / size * 2.0 * np.pi
+        self.set_skydome_texture((0.5 + 0.25 * np.sin(
+            t[None, :, None] + phase[0]) * np.cos(t[:, None, None]
+                                                   + phase[1])).astype(
+            np.float32))
+        return build(self, *args, **kw)
+
+    SceneBuilder.build = with_background
+    try:
+        yield
+    finally:
+        SceneBuilder.build = build
+
+
+def occluded_tile_pairs(n=3000, seed=12):
+    """The early-out's constructed case: a 128x128 frame in 64x32 tiles, a
+    full-screen quad at depth 0.05 in front of ``n`` small triangles
+    (depths 0.3-0.9) crowding tile (0, 0), binned front to back (no span
+    column) with a fused payload. Returns (pairs, z column)."""
+    rng = np.random.default_rng(seed)
+    dim = 128
+    quad = np.array([[[-1, -1], [1, -1], [1, 1]],
+                     [[-1, -1], [1, 1], [-1, 1]]], np.float32)
+    cx = rng.uniform(0.0, 32.0, (n, 1))
+    cy = rng.uniform(0.0, 64.0, (n, 1))
+    px = np.clip(cx + rng.uniform(-3.0, 3.0, (n, 3)), 0.0, 32.0)
+    py = np.clip(cy + rng.uniform(-3.0, 3.0, (n, 3)), 0.0, 64.0)
+    xy = np.concatenate([quad, np.stack([px, py], -1) / dim * 2.0 - 1.0])
+    z = np.concatenate([np.full((2, 3, 1), 0.05),
+                        np.repeat(rng.uniform(0.3, 0.9, (n, 1, 1)), 3, 1)])
+    clip = np.concatenate([xy, z, np.ones_like(z)], -1).astype(np.float32)
+    setup = rast.triangle_setup(torch.from_numpy(clip).cuda(), dim, dim,
+                                two_sided=True)
+    extra = torch.from_numpy(rng.random((n + 2, rc.fused_extra_width()))
+                             .astype(np.float32)).cuda()
+    pairs = rc.build_pairs(setup, dim, dim, 64, 32, expand=8, sort_z=True,
+                           extra=extra)
+    return pairs, 12 + rc.fused_extra_width()
+
+
+def early_out_blind_spot(b_calls, b0_calls, b_aux, b0_aux) -> dict:
+    """Frame early_out_aligned (b) against frame ysort_off (b0), pass by
+    pass. The early-out skips a range's later pairs once every pixel lies
+    below the chunk's largest z bucket (the quantized floor of a
+    triangle's smallest vertex depth); a pair whose COMPUTED fp32 depth
+    falls below its own bucket (an ill-conditioned, sliver-thin
+    triangle) escapes that bound. Wherever b0's winner lies at or above
+    its own bucket, (b) equals (b0): a skipped pair could not have won
+    there. Checks that every differing pixel or texel is such a winner;
+    returns the counts."""
+    out = {}
+    for name, what in (("pair_raster", "shadow map"),
+                       ("pair_raster_fused", "GBuffer")):
+        (pb, h, w), kb = b_calls[name]
+        (p0, _, _), k0 = b0_calls[name]
+        z_col = k0["z_row"]
+        kw0 = dict(k0)
+        if name == "pair_raster":
+            kw0["depth_only"] = False
+            d0, t0 = rc.rasterize_pairs(p0, h, w, backend="cuda", **kw0)
+            d1 = rc.rasterize_pairs(pb, h, w, backend="cuda", **kb)
+            t1 = None
+        else:
+            d0, t0, _ = rc.rasterize_pairs_fused(p0, h, w, backend="cuda",
+                                                 **kw0)
+            d1, t1, _ = rc.rasterize_pairs_fused(pb, h, w, backend="cuda",
+                                                 **kb)
+        differ = d1.view(torch.int32) != d0.view(torch.int32)
+        if t1 is not None:
+            differ |= t1 != t0
+        # The z bucket of each triangle, from b0's records (its z column).
+        n_tri = int(p0.pair_tri.max()) + 1
+        bucket = torch.zeros(n_tri, dtype=torch.float32, device=d0.device)
+        bucket[p0.pair_tri.long()] = p0.records[:, z_col]
+        below = (t0 >= 0) & (d0 < bucket[t0.clamp_min(0).long()])
+        unexplained = int((differ & ~below).sum())
+        check(unexplained == 0,
+              f"early_out_aligned: {unexplained} {what} values differ from "
+              "ysort_off's where the winner lies at or above its z bucket")
+        out[what] = dict(differing=int(differ.sum()),
+                         winners_below_their_bucket=int(below.sum()),
+                         pixels=h * w)
+    return out
+
+
+def early_out_cases(b_calls: dict, b0_calls: dict) -> dict:
+    """K1 and K2 with the occlusion early-out against their plain
+    versions, skip counts included: on frame early_out_aligned's pairs
+    (raster_ysort=False, aligned bins) and on the constructed occluder
+    case, where the count must be positive; then both kernels' device
+    times on config 3's pairs with raster_ysort=False, with and without
+    the early-out, on unaligned (frame ysort_off) and aligned bins."""
+    out = {"pair_raster": {}, "pair_raster_fused": {}}
+    wrappers = {"pair_raster": rc.rasterize_pairs,
+                "pair_raster_fused": rc.rasterize_pairs_fused}
+
+    def counted(name, args, kw, label, fused):
+        fn = wrappers[name]
+        sk = torch.zeros(1, dtype=torch.int32, device="cuda")
+        sp = torch.zeros(1, dtype=torch.int32, device="cuda")
+        res = compare_raster(fn(*args, backend="cuda", eo_skipped=sk, **kw),
+                             fn(*args, backend="torch", eo_skipped=sp, **kw),
+                             fused)
+        check(int(sk) == int(sp),
+              f"{name}, {label}: the kernel skipped {int(sk)} pair visits, "
+              f"the plain version {int(sp)}")
+        out[name][label] = dict(res, skipped=int(sk), skipped_plain=int(sp))
+        return int(sk)
+
+    for name, fused in (("pair_raster", False), ("pair_raster_fused", True)):
+        args, kw = b_calls[name]
+        check(kw["early_out"] and kw["z_row"] >= 0 and kw["y_row"] < 0,
+              f"early_out_aligned: {name} runs without the early-out")
+        check(int(args[0].starts[0]) % 128 == 0 and
+              bool((args[0].starts % 128 == 0).all()),
+              f"early_out_aligned: {name}'s bins are not aligned")
+        counted(name, args, kw, "frame early_out_aligned", fused)
+    pairs, z_col = occluded_tile_pairs()
+    eo = dict(tile_h=64, tile_w=32, early_out=True, z_row=z_col,
+              eo_stride=1)
+    for depth_only in (True, False):
+        n = counted("pair_raster", (pairs, 128, 128),
+                    dict(eo, depth_only=depth_only),
+                    f"occluder, depth_only={depth_only}", False)
+        check(n > 0, "K1 skipped nothing behind the occluder")
+    with one_block_a_tile():
+        n1 = counted("pair_raster", (pairs, 128, 128), eo,
+                     "occluder, one block a tile", False)
+    n2 = counted("pair_raster_fused", (pairs, 128, 128), eo, "occluder",
+                 True)
+    check(n1 > 0 and n2 == n1,
+          f"occluder: K1 in one block a tile skipped {n1}, K2 {n2}")
+    for name in wrappers:
+        fn = wrappers[name]
+        (pb, h, w), kb = b_calls[name]
+        (p0, _, _), k0 = b0_calls[name]
+        check(not k0["early_out"] and k0["y_row"] < 0,
+              f"ysort_off: {name} is not the plain walk")
+        times = {}
+        for label, pp, early in (("unaligned", p0, False),
+                                 ("unaligned_early_out", p0, True),
+                                 ("aligned", pb, False),
+                                 ("aligned_early_out", pb, True)):
+            kk = dict(kb, early_out=early)
+            times[label] = graph_ms(
+                lambda: fn(pp, h, w, backend="cuda", **kk), 10)
+        out[name]["ms_raster_ysort_off"] = times
+    return out
+
+
+def phase_options():
+    """The remaining single-device frame options on config 3's 1080p frame
+    (its scene built with a seeded background image, a smooth seeded sky
+    and the merged environment table): the dome mesh with the background
+    pass, the frame without y-sorted bins alone and with the occlusion
+    early-out on aligned bins (equal to it wherever the early-out's rule
+    holds: ``early_out_blind_spot``), the background pass, the merged
+    environment tap with it (within 2e-3 of the separate taps), config 3t
+    with the half-resolution reflection, and every ablation flag: 1
+    warm-up + 2 timed frames each, launches per frame checked. Then one
+    noted frame each; their new kernel calls replayed against the plain
+    versions."""
+    base = config3()
+    t0 = time.time()
+    with seeded_images():
+        scene, meta, world = build_demo_scene(base.replace(env_merge=True),
+                                              grass=10000, rocks=65)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    check(meta.enable_background and scene.env_table is not None,
+          "options: the scene has no background or merged table")
+    s3t, m3t, w3t, c3t = SCENES["frame3t"]
+    frames, launches_sum, n_sum, noted = {}, {}, 0, {}
+    for name, (change, want) in OPTION_FRAMES.items():
+        if name.startswith("textured"):
+            sc, me, wo, cfg = s3t, m3t, w3t, c3t.replace(**change)
+        else:
+            sc, me, wo, cfg = scene, meta, world, base.replace(**change)
+        warm, timed = 1, 2
+        frame_ms, host_ms, image, aux, launches = timed_frames(
+            sc, me, wo, cfg, warm, timed)
+        check_launches(launches, {k: v * (warm + timed)
+                                  for k, v in want.items()}, f"options {name}")
+        for k, v in launches.items():
+            launches_sum[k] = launches_sum.get(k, 0) + v
+        n_sum += warm + timed
+        check(bool(torch.isfinite(image).all()), f"{name}: not finite")
+        noted[name] = noted_frame(sc, me, wo, cfg)
+        view = build_view_state(wo, cfg, time=0.7, roll_light=0.3)
+        busy = device_profile(lambda: render_frame(sc, view, me, cfg),
+                              f"profile_options_{name}")
+        frames[name] = dict(frame_ms=statistics.median(frame_ms),
+                            host_frame_ms=statistics.median(host_ms),
+                            device_busy_ms=busy["device_busy_ms"],
+                            device_launches=busy["device_launches"],
+                            launches_per_frame={k: v / (warm + timed)
+                                                for k, v in launches.items()},
+                            image_mean=float(image.mean()))
+    # (b) against (b0): equal wherever the early-out's rule holds; (c)
+    # within 2e-3 of the separate taps.
+    (b_calls, b_img, b_aux), (b0_calls, b0_img, b0_aux) = (
+        noted["early_out_aligned"], noted["ysort_off"])
+    blind = early_out_blind_spot(b_calls, b0_calls, b_aux, b0_aux)
+    blind["image_pixels_differing"] = int((b_img != b0_img).any(-1).sum())
+    env_img, bg_img = (noted[k][1] for k in ("env_merge_background",
+                                             "background"))
+    env_err = float((env_img - bg_img).abs().max())
+    check(env_err <= 2e-3, f"env merge: max-abs {env_err} > 2e-3 against "
+          "the separate taps")
+    mesh_img = noted["mesh_skydome_background"][1]
+    # Replays: K1 with ids and the frame's depth on the dome, K4 on the
+    # background rect (as the frame called it, and over every pixel).
+    m_calls = noted["mesh_skydome_background"][0]
+    k1 = m_calls["all:pair_raster"]
+    check(len(k1) == 2 and k1[0][1]["depth_only"]
+          and not k1[1][1].get("depth_only", False)
+          and k1[1][1].get("init_depth") is not None,
+          "mesh skydome: K1 is not called for the shadow map, then the dome "
+          "with ids and an initial depth")
+    dargs, dkw = k1[1]
+    dome = compare_raster(
+        rc.rasterize_pairs(*dargs, backend="cuda", **dkw),
+        rc.rasterize_pairs(*dargs, backend="torch", **dkw), False)
+    dome["ms"] = graph_ms(lambda: rc.rasterize_pairs(
+        *dargs, backend="cuda", **dkw), 10)
+    dome["covered_fraction"] = float(
+        (rc.rasterize_pairs(*dargs, backend="cuda", **dkw)[1] >= 0)
+        .float().mean())
+    k4 = m_calls["all:bilinear_tap"]
+    check(len(k4) == 1, f"mesh skydome: K4 called {len(k4)} times")
+    bargs, bkw = k4[0]
+    rect = {}
+    for label, targs in (("as called", bargs),
+                         ("every pixel", (bargs[0], bargs[1], None,
+                                          bargs[3]))):
+        k, p = (window_tap.sample_base_window(*targs, backend=b, **bkw)[0]
+                for b in ("cuda", "torch"))
+        err = float((k - p).abs().max())
+        check(torch.equal(k, p), f"K4 background rect ({label}): max-abs "
+              f"{err}")
+        rect[label] = {"max_abs_err": err}
+    rect["ms"] = graph_ms(lambda: window_tap.sample_base_window(
+        *bargs, backend="cuda", **bkw), 20)
+    eo = early_out_cases(b_calls, b0_calls)
+    emit("options", frames=frames, scene_build_s=round(build_s, 2),
+         env_merge_max_abs_vs_separate=env_err,
+         early_out_aligned_vs_ysort_off=blind,
+         mesh_vs_analytic_mean_abs=float((mesh_img - bg_img).abs().mean()),
+         dome_k1=dome, background_k4=rect, early_out=eo,
+         env_table=list(scene.env_table.shape),
+         launches=launches_sum, frames_counted=n_sum)
+    extra = {"pair_raster": dict(options_dome=dome,
+                                 options_early_out=eo["pair_raster"]),
+             "pair_raster_fused": dict(
+                 options_early_out=eo["pair_raster_fused"]),
+             "bilinear_tap": dict(options_background_rect=rect)}
+    # Phase kernels replays the dome frame's fma calls with every path's.
+    return m_calls, launches_sum, n_sum, extra
+
+
 def device_profile(fn, phase: str) -> dict:
     """Where one call of ``fn`` (ending in a synchronise) spends device
     time: the ten device operations with the largest summed time
@@ -2147,8 +2454,12 @@ def main() -> None:
     for path, (c, counts) in zip(("golden", "golden_points"),
                                  timed("golden", phase_golden)):
         paths[path], path_launches[path] = c, counts
+    noted, counts, n, options_extra = timed("options", phase_options)
+    paths["options"], path_launches["options"] = noted, per_frame(counts, n)
     rows = timed("kernels", phase_kernels, captured, launches, paths,
                  path_launches)
+    for row in rows:
+        row.update(options_extra.get(row["name"], {}))
     check(not FAILURES, "; ".join(FAILURES))
     timed("frame_vs_plain", phase_frame_vs_plain)
     timed("engine", phase_engine)

@@ -174,24 +174,24 @@ def _build(name, port: bool, **config_changes):
     return scene, view, meta, cfg
 
 
-def _setups(scene, view, meta, cfg):
-    """The deferred and shadow passes' triangle setups, built as the port's
-    frame builds them (bit for bit with the jitted JAX setups)."""
+def _render_noting_setups(scene, view, meta, cfg):
+    """The port's frame, and the shadow and deferred passes' triangle
+    setups as the frame built them (before compaction: original rows; bit
+    for bit with the jitted JAX setups)."""
     captured = []
+    real = t_frame.triangle_setup
 
-    def note(setup, *args, **kw):
-        captured.append(setup)
-        return real(setup, *args, **kw)
+    def note(*args, **kw):
+        captured.append(real(*args, **kw))
+        return captured[-1]
 
-    real = t_frame.build_pairs
-    t_frame.build_pairs = note
+    t_frame.triangle_setup = note
     try:
-        render_frame(scene, view, meta, cfg.replace(compact_tris=None,
-                                                    compact_tris_shadow=None))
+        out = render_frame(scene, view, meta, cfg)
     finally:
-        t_frame.build_pairs = real
+        t_frame.triangle_setup = real
     sh, gb = captured
-    return gb, sh
+    return out, gb, sh
 
 
 def _assert_equal_but_outside_bbox(depth, jdepth, tid, jtid, setup):
@@ -215,8 +215,8 @@ def frames():
     for name in _SCENES:
         scene, view, meta, cfg = _build(name, port=True)
         assert meta.has_meshlets
-        out[name] = (scene, view, meta, cfg,
-                     render_frame(scene, view, meta, cfg))
+        frame, gb, sh = _render_noting_setups(scene, view, meta, cfg)
+        out[name] = (scene, view, meta, cfg, frame, gb, sh)
     return out
 
 
@@ -232,7 +232,7 @@ def test_meshlet_frames_match_the_jitted_reference(frames, name):
     such pixels or texels. Nothing overflowed (the reduced config 4 really
     compacts: its caps are below the pool). The final depth of sky pixels
     (the analytic dome's) is not compared."""
-    scene, view, meta, cfg, (img, aux) = frames[name]
+    scene, view, meta, cfg, (img, aux), gb, sh = frames[name]
     jscene, jview, jmeta, jcfg = _build(name, port=False)
     # The port's SceneBuilder.add_meshlet_object builds the same scene.
     for leaf in ("meshlet_records", "tri_meshlet", "tri_vtx", "tri_valid",
@@ -242,7 +242,6 @@ def test_meshlet_frames_match_the_jitted_reference(frames, name):
                                       err_msg=leaf)
     jimg, jaux = j_render(jscene, jview, jmeta, jcfg)
     assert_golden(img.numpy(), np.asarray(jimg), name)
-    gb, sh = _setups(scene, view, meta, cfg)
     _assert_equal_but_outside_bbox(
         aux["gbuffer_depth"].numpy(), np.asarray(jaux["gbuffer_depth"]),
         aux["tri_id"].numpy(), np.asarray(jaux["tri_id"]), gb)

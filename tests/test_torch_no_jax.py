@@ -44,7 +44,9 @@ def test_package_layout_is_there():
                  "zeldaengine_tpu_torch/livelink/client.py",
                  "zeldaengine_tpu_torch/livelink/editor.py",
                  "zeldaengine_tpu_torch/viewer.py",
-                 "zeldaengine_tpu_torch/profiling.py"):
+                 "zeldaengine_tpu_torch/profiling.py",
+                 "zeldaengine_tpu_torch/ops/envtap.py",
+                 "zeldaengine_tpu_torch/scene/fbx.py"):
         assert want in files
     assert os.path.exists(os.path.join(PKG, "native", "zeldanative.cpp"))
     # The scan below covers the new sub-packages as their own cases.

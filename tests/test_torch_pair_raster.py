@@ -23,12 +23,20 @@ torch.set_num_threads(1)
 
 
 def test_build_pairs_accepts_gather_layouts_and_refuses_align():
+    """The gather layouts give the same records. ``align`` was refused
+    until the aligned bins were ported; it now moves the records to
+    128-pair boundaries and rasterizes to the same buffers
+    (tests/test_torch_pair_options.py holds it against the JAX
+    package)."""
     _, ts = _setups(5)
     a = tp.build_pairs(ts, W, H, 8, 128)
     b = tp.build_pairs(ts, W, H, 8, 128, gather_chunks=4, gather_pack=8)
     np.testing.assert_array_equal(a.records.numpy(), b.records.numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.build_pairs(ts, W, H, 8, 128, align=True)
+    c = tp.build_pairs(ts, W, H, 8, 128, align=True)
+    assert int((c.starts % 128).abs().sum()) == 0
+    for x, y in zip(tp.rasterize_pairs(a, H, W, tile_h=8, tile_w=128),
+                    tp.rasterize_pairs(c, H, W, tile_h=8, tile_w=128)):
+        assert torch.equal(x, y)
 
 
 def _off_ties(depth_ref, tid_a, tid_b):

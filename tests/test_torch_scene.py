@@ -99,5 +99,9 @@ def test_obj_round_trip_and_fbx_refused(tmp_path):
     for name in ("positions", "normals", "uvs", "indices", "colors"):
         np.testing.assert_array_equal(getattr(got, name),
                                       getattr(want, name), err_msg=name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_mesh("thing.fbx")
+    # .fbx goes to the binary-FBX reader (tests/test_torch_fbx.py), which
+    # refuses an ASCII file.
+    fbx = tmp_path / "thing.fbx"
+    fbx.write_bytes(b"; FBX 7.4.0 project file\n")
+    with pytest.raises(ValueError, match="ASCII"):
+        load_mesh(str(fbx))

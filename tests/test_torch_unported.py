@@ -26,10 +26,6 @@ def frame_args():
 # part of the frame -> [(what to change, the ROADMAP item it must name)].
 # A dict changes the config; "band" asks for a row band (see _apply).
 _UNPORTED = {
-    "raster_options": [
-        (dict(pair_align=True), "align"),
-        (dict(raster_early_out=True), "early-out"),
-    ],
     # The PCF variants without a kernel (the others are ported).
     "pcf_backends": [
         (dict(pcf_backend="packed_y4"), "A9"),
@@ -38,15 +34,6 @@ _UNPORTED = {
         (dict(pcf_backend="packed16"), "A9"),
         (dict(pcf_backend="window1"), "A9"),
         (dict(pcf_backend="half_y4"), "A9"),
-    ],
-    "passes": [
-        (dict(env_merge=True), "envtap"),
-        (dict(skydome_mode="mesh"), "skydome_mesh"),
-        (dict(enable_background=True), "background"),
-    ],
-    "shading": [
-        (dict(reflection_half=True), "half"),
-        (dict(ablate="nopcf"), "ablations"),
     ],
     "view_and_bands": [
         ("band", "parallel/tiles.py"),

@@ -142,9 +142,12 @@ class EngineConfig:
     # packed sub-block span. Exact (coverage outside the binning bbox is
     # empty).
     raster_ysort: bool = True
-    # Occlusion early-out in the pair walks (needs raster_zsort).
-    # Automatically disabled while ``raster_ysort`` is active: y-bucketed
-    # bins break the z monotonicity the stop test needs.
+    # Occlusion early-out in the pair walks (needs raster_zsort): every
+    # ``early_out_stride`` chunks a tile stops a range once every pixel
+    # lies below the range's next z bucket. Automatically disabled while
+    # ``raster_ysort`` is active: y-bucketed bins break the z monotonicity
+    # the stop test needs. Not exact on thin triangles, whose computed
+    # depth can lie below their vertices' (ROADMAP.md C).
     raster_early_out: bool = False
     early_out_stride: int = 4
     # Reflection IBL tap at half resolution + bilinear upsample. Off by

@@ -22,7 +22,7 @@ from zeldaengine_tpu_torch.utils.device import require_device
 # GpuScene leaves the port stores as bfloat16 (they arrive as float32
 # arrays holding bf16-exact values).
 BF16_LEAVES = ("combined_atlas", "cube_atlas", "sky_tex", "bg_tex",
-               "cube_pair1")
+               "cube_pair1", "env_table")
 
 
 def _tensor(a, device, dtype=None) -> Optional[torch.Tensor]:

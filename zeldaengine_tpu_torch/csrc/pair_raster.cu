@@ -102,7 +102,8 @@ __global__ void __launch_bounds__(zk::kThreads, kMinBlocks<NPP>)
     const float* __restrict__ init_depth, float* __restrict__ depth,
     int* __restrict__ tid, void* __restrict__ keys, int width, int tile_h,
     int tile_w, int n_tx, int n_sx, int super_h, int super_w, int sub_rows,
-    int y_row, int n_parts, int min_chunks) {
+    int y_row, int n_parts, int min_chunks, int z_row, int eo_stride,
+    int* __restrict__ skipped) {
   // Block b walks part b % n_parts of tile b / n_parts: the parts of a
   // crowded tile start together, early in the grid.
   const int p = blockIdx.x % n_parts;
@@ -117,8 +118,11 @@ __global__ void __launch_bounds__(zk::kThreads, kMinBlocks<NPP>)
   int bid[NPP];
   zk::strip::pixel_setup<NPP>(c, tile_h, tile_w, width, init_depth, px, py,
                               best);
+  // Each part stops on its own bound: its pairs stay in ascending order,
+  // so each range's part is still sorted by z bucket.
   zk::strip::walk<NPP, X1>(c, s, part.ch0, part.ch1, records, rec_w, y_row,
-                           sub_rows, tile_h, tile_w, px, py, best, bid);
+                           sub_rows, tile_h, tile_w, px, py, best, bid,
+                           {z_row, eo_stride, skipped});
 #pragma unroll
   for (int k = 0; k < NPP; ++k) {
     const int g = zk::strip::pixel_index<NPP>(c, tile_h, tile_w, width, k);
@@ -176,20 +180,25 @@ __global__ void __launch_bounds__(zk::kThreads) merge_parts_kernel(
 // sub_rows rows). n_parts > 1 splits each tile's sequence into up to
 // n_parts parts of at least min_chunks 64-pair chunks; keys is then a
 // scratch buffer of height * width 64-bit words, which this function fills
-// before the raster. Returns cudaGetLastError(),
-// or cudaErrorInvalidValue for arguments the kernels do not take.
+// before the raster. z_row >= 0 (with y_row < 0 and eo_stride >= 1) turns
+// the occlusion early-out on (strip_walk.cuh), each part of a split tile
+// stopping on its own bound; skipped, if not null, gets the pair visits it
+// skipped added. Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// arguments the kernels do not take.
 extern "C" int zk_pair_raster(
     const void* records, int rec_w, const void* starts, const void* ends,
     const void* sstarts, const void* sends, const void* gbounds,
     const void* pair_tri, const void* init_depth, void* depth, void* tid,
     void* keys, int height, int width, int tile_h, int tile_w, int n_sx,
     int super_h, int super_w, int sub_rows, int y_row, int n_parts,
-    int min_chunks, int depth_only, void* stream) {
+    int min_chunks, int depth_only, int z_row, int eo_stride, void* skipped,
+    void* stream) {
   const int n_tx = width / tile_w;
   const int n_tiles = n_tx * (height / tile_h);
   if (rec_w % 4 != 0 || ((size_t)records & 15) != 0 || y_row >= rec_w ||
       (y_row >= 0 && sub_rows <= 0) || n_parts < 1 || min_chunks < 1 ||
-      (n_parts > 1 && keys == nullptr) ||
+      (n_parts > 1 && keys == nullptr) || z_row >= rec_w ||
+      (z_row >= 0 && eo_stride < 1) ||
       (long long)n_tiles * n_parts > INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -206,7 +215,7 @@ extern "C" int zk_pair_raster(
       (const int*)sstarts, (const int*)sends, (const int*)gbounds,          \
       (const int*)pair_tri, (const float*)init_depth, (float*)depth,        \
       (int*)tid, keys, width, tile_h, tile_w, n_tx, n_sx, super_h, super_w, \
-      sub_rows, y_row, n_parts, min_chunks)
+      sub_rows, y_row, n_parts, min_chunks, z_row, eo_stride, (int*)skipped)
 #define ZK_LAUNCH_X(NPP, DO)           \
   {                                     \
     if (x1) ZK_LAUNCH_V(NPP, true, DO); \

@@ -51,7 +51,7 @@ __global__ void __launch_bounds__(zk::kThreads, kMinBlocks<NPP>)
     int* __restrict__ tid, float* __restrict__ attrs, int height, int width,
     int tile_h, int tile_w, int n_tx, int n_sx, int super_h, int super_w,
     int sub_rows, int y_row, float tex_size, int need_uv, int has_combo,
-    float combo_const) {
+    float combo_const, int z_row, int eo_stride, int* __restrict__ skipped) {
   const zk::TileCtx c = zk::tile_context(starts, ends, sstarts, sends,
                                          gbounds, n_tx, n_sx, super_h,
                                          super_w, blockIdx.x);
@@ -62,7 +62,7 @@ __global__ void __launch_bounds__(zk::kThreads, kMinBlocks<NPP>)
   const zk::strip::Seq s = zk::strip::make_seq(c);
   zk::strip::walk<NPP, X1>(c, s, 0, zk::strip::n_chunks(s), records, rec_w,
                            y_row, sub_rows, tile_h, tile_w, px, py, best,
-                           bid);
+                           bid, {z_row, eo_stride, skipped});
 
   const size_t plane = (size_t)height * width;
   const int corner_w = need_uv ? 11 : 9;
@@ -153,16 +153,21 @@ __global__ void __launch_bounds__(zk::kThreads, kMinBlocks<NPP>)
 // As zk_pair_raster, plus attrs (24, height, width), the strip span
 // (sub_rows, y_row; y_row < 0: no span column) and the static elision flags
 // of the record layout. records must be 16-byte aligned with rec_w a
-// multiple of 4 (cp.async stages 16-byte pieces of each row).
+// multiple of 4 (cp.async stages 16-byte pieces of each row). z_row >= 0
+// (with y_row < 0 and eo_stride >= 1) turns the occlusion early-out on
+// (strip_walk.cuh); skipped, if not null, gets the pair visits it skipped
+// added.
 extern "C" int zk_pair_raster_fused(
     const void* records, int rec_w, const void* starts, const void* ends,
     const void* sstarts, const void* sends, const void* gbounds,
     const void* pair_tri, const void* init_depth, void* depth, void* tid,
     void* attrs, int height, int width, int tile_h, int tile_w, int n_sx,
     int super_h, int super_w, int sub_rows, int y_row, int texture_size,
-    int need_uv, int has_combo, float combo_const, void* stream) {
+    int need_uv, int has_combo, float combo_const, int z_row, int eo_stride,
+    void* skipped, void* stream) {
   if (rec_w % 4 != 0 || ((size_t)records & 15) != 0 || y_row >= rec_w ||
-      (y_row >= 0 && sub_rows <= 0))
+      (y_row >= 0 && sub_rows <= 0) || z_row >= rec_w ||
+      (z_row >= 0 && eo_stride < 1))
     return (int)cudaErrorInvalidValue;
   const int n_tx = width / tile_w;
   const int n_ty = height / tile_h;
@@ -176,7 +181,7 @@ extern "C" int zk_pair_raster_fused(
       (const int*)pair_tri, (const float*)init_depth, (float*)depth,        \
       (int*)tid, (float*)attrs, height, width, tile_h, tile_w, n_tx, n_sx,  \
       super_h, super_w, sub_rows, y_row, (float)texture_size, need_uv,      \
-      has_combo, combo_const)
+      has_combo, combo_const, z_row, eo_stride, (int*)skipped)
 #define ZK_LAUNCH(NPP)                                                      \
   if (x1) ZK_LAUNCH_V(NPP, true);                                            \
   else ZK_LAUNCH_V(NPP, false)

@@ -30,6 +30,19 @@
 //   16-byte piece per thread per chunk), so chunk i+1 is in flight while
 //   chunk i is walked, and one __syncthreads per chunk suffices.
 //
+// - Occlusion early-out (z-sorted bins without a span column; replaces
+//   the stop test of the JAX package's _run_raster_walk_accwide): each of
+//   the tile's three ranges is sorted by its pairs' z bucket (record
+//   column z_col, the quantized floor of the triangle's nearest depth).
+//   After every eo_stride-th chunk of the block's walk, the block takes
+//   the maximum over its pixels of min(acc, init) (a warp shuffle and
+//   one shared-memory step) and, for each range with pairs in that chunk,
+//   their largest z bucket; where the pixels' maximum lies strictly below
+//   it, every later pair of the range is at least as far as that bucket
+//   everywhere and cannot win a strict d < best, so the block skips the
+//   rest of the range. Skipped pairs are still staged (the ring runs
+//   ahead) but not tested; thread 0 counts them into *skipped.
+//
 // Arithmetic is written in the operation order of the plain PyTorch
 // version (ops/rasterize_cuda.py) and the file is compiled with
 // -fmad=false: the only fused multiply-adds are the explicit __fmaf_rn of
@@ -38,6 +51,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace zk {
@@ -253,6 +267,27 @@ __device__ __forceinline__ int n_chunks(const Seq& s) {
   return (s.total + kChunk - 1) / kChunk;
 }
 
+// Bits [lo, hi) of a 64-bit chunk mask (0 <= lo <= hi <= 64).
+__device__ __forceinline__ uint64_t bit_range(int lo, int hi) {
+  const uint64_t below_hi = hi >= 64 ? ~0ull : ((1ull << hi) - 1ull);
+  const uint64_t below_lo = lo >= 64 ? ~0ull : ((1ull << lo) - 1ull);
+  return below_hi & ~below_lo;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Occlusion early-out arguments of a walk: z_col < 0 turns it off.
+struct EarlyOut {
+  int z_col;                 // record column of the pairs' z bucket
+  int stride;                // test after every stride-th chunk
+  int* __restrict__ skipped; // pair visits skipped are added here; may be 0
+};
+
 // Walks chunks [ch0, ch1) of the tile's sequence s (virtual indices
 // [ch0 * kChunk, min(ch1 * kChunk, s.total))); bid[k] is the winner's pair
 // id, or -1.
@@ -261,13 +296,22 @@ __device__ __forceinline__ void walk(
     const TileCtx& c, const Seq& s, int ch0, int ch1,
     const float* __restrict__ records, int rec_w, int y_row, int sub_rows,
     int tile_h, int tile_w, const float (&px)[NPP], const float (&py)[NPP],
-    float (&best)[NPP], int (&bid)[NPP]) {
+    float (&best)[NPP], int (&bid)[NPP], const EarlyOut eo) {
   __shared__ Stage stages[kStages];
+  __shared__ float warp_best[kThreads / 32];
   const int v_end = min(s.total, ch1 * kChunk);
   const WarpRows wr = warp_rows<NPP>(c, tile_h, tile_w);
   const int lane = threadIdx.x % 32;
-  const int span_q = y_row >= 0 ? y_row / 4 : -1;
-  const int span_e = y_row >= 0 ? y_row % 4 : 0;
+  // The staged fourth piece holds the span column (y_row) or, under the
+  // early-out, which needs no span column, the z bucket column.
+  const bool span_skip = y_row >= 0;
+  const bool early = !span_skip && eo.z_col >= 0 && eo.stride > 0;
+  const int col4 = span_skip ? y_row : (early ? eo.z_col : -1);
+  const int span_q = col4 >= 0 ? col4 / 4 : -1;
+  const int span_e = col4 >= 0 ? col4 % 4 : 0;
+  const int len01 = s.len[0] + s.len[1];
+  bool stopped[3] = {false, false, false};
+  int n_skipped = 0;
   const float subf = (float)sub_rows;
   const Rect rect = {(float)(c.tx * tile_w) + 0.5f,
                      (float)(c.tx * tile_w + tile_w - 1) + 0.5f,
@@ -294,7 +338,7 @@ __device__ __forceinline__ void walk(
     uint64_t m;
     if (!wr.any) {
       m = 0;
-    } else if (span_q < 0) {
+    } else if (!span_skip) {
       m = n == kChunk ? ~0ull : ((1ull << n) - 1ull);
     } else {
       const bool in0 =
@@ -303,6 +347,17 @@ __device__ __forceinline__ void walk(
           lane + 32 < n && pair_meets(st, lane + 32, span_e, subf, wr, rect);
       m = (uint64_t)__ballot_sync(0xffffffffu, in0) |
           ((uint64_t)__ballot_sync(0xffffffffu, in1) << 32);
+    }
+    // Range boundaries inside this chunk: bits [0, end0) dense,
+    // [end0, end1) supertile, [end1, n) global.
+    const int end0 = min(max(s.len[0] - v0, 0), n);
+    const int end1 = min(max(len01 - v0, 0), n);
+    if (early && (stopped[0] || stopped[1] || stopped[2])) {
+      const uint64_t gone = (stopped[0] ? bit_range(0, end0) : 0ull) |
+                            (stopped[1] ? bit_range(end0, end1) : 0ull) |
+                            (stopped[2] ? bit_range(end1, n) : 0ull);
+      m &= ~gone;
+      n_skipped += __popcll(gone);
     }
     while (m) {
       const int j = __ffsll((long long)m) - 1;
@@ -335,8 +390,37 @@ __device__ __forceinline__ void walk(
         }
       }
     }
+    if (early && (ch - ch0) % eo.stride == eo.stride - 1) {
+      // The block's max over its pixels of min(acc, init) (pixel slots
+      // outside the tile hold -1), against each live range's largest z
+      // bucket in this chunk. Every warp computes the same flags.
+      float mx = best[0];
+#pragma unroll
+      for (int k = 1; k < NPP; ++k) mx = fmaxf(mx, best[k]);
+      mx = warp_max(mx);
+      if (lane == 0) warp_best[threadIdx.x / 32] = mx;
+      __syncthreads();
+      float eff = warp_best[0];
+#pragma unroll
+      for (int w = 1; w < kThreads / 32; ++w) eff = fmaxf(eff, warp_best[w]);
+      const float* zs = reinterpret_cast<const float*>(st.span);
+      float zr[3] = {-INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = lane + 32 * h;
+        if (j < n) {
+          const int r = j < end0 ? 0 : (j < end1 ? 1 : 2);
+          zr[r] = fmaxf(zr[r], zs[j * 4 + span_e]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+        stopped[r] = stopped[r] || eff < warp_max(zr[r]);
+    }
   }
   cp_async_wait<0>();  // the trailing groups are empty; drain them anyway
+  if (early && eo.skipped != nullptr && threadIdx.x == 0 && n_skipped > 0)
+    atomicAdd(eo.skipped, n_skipped);
 #pragma unroll
   for (int k = 0; k < NPP; ++k)
     if (bid[k] >= 0) bid[k] = seq_pair(s, bid[k]);

@@ -325,11 +325,20 @@ fma_f32.launches = 0
 _FMA_WRAPPER = fma_f32
 
 
+# The 29 low mantissa bits fp64 has beyond fp32's, and their value at an
+# fp32 tie (half an fp32 ulp).
+_F32_DROPPED = (1 << 29) - 1
+_F32_TIE = 1 << 28
+
+
 def fma_f32_plain(a: torch.Tensor, b, c) -> torch.Tensor:
     """Plain PyTorch version of ``fma_f32`` (any device). The fp32 product
-    is exact in fp64; the fp64 sum is rounded to odd (its error recovered
-    by TwoSum and folded into the last bit), so the final cast to fp32
-    rounds once, correctly: no double rounding."""
+    is exact in fp64, and the fp64 sum cast to fp32 rounds once, correctly,
+    but where the sum sits exactly on an fp32 tie (fp32 ties are fp64
+    numbers, so rounding to fp64 cannot carry a sum across one) or outside
+    fp32's normal range. There the sum is rounded to odd (its error
+    recovered by TwoSum and folded into the last bit) before the cast: no
+    double rounding."""
     def f64(x):  # Python numbers become fp32 constants first
         return torch.as_tensor(x, dtype=torch.float32,
                                device=a.device).double()
@@ -337,13 +346,25 @@ def fma_f32_plain(a: torch.Tensor, b, c) -> torch.Tensor:
     p = f64(a) * f64(b)
     c = f64(c)
     s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    odd = torch.nextafter(s, torch.copysign(torch.full_like(s, math.inf),
-                                            err))
-    s = torch.where((err != 0) & even & torch.isfinite(s), odd, s)
-    return s.float()
+    out = s.float()
+    mag = s.abs()
+    redo = (((s.view(torch.int64) & _F32_DROPPED) == _F32_TIE)
+            | (mag < 2.0 ** -126) | ~(mag < 2.0 ** 127))
+    if bool(redo.any()):
+        idx = redo.reshape(-1).nonzero().squeeze(1)
+
+        def at(x):
+            return x.expand(s.shape).reshape(-1)[idx]
+
+        pr, cr, sr = at(p), at(c), at(s)
+        bb = sr - pr
+        err = (pr - (sr - bb)) + (cr - bb)
+        even = (sr.view(torch.int64) & 1) == 0
+        odd = torch.nextafter(sr, torch.copysign(
+            torch.full_like(sr, math.inf), err))
+        out.view(-1)[idx] = torch.where(
+            (err != 0) & even & torch.isfinite(sr), odd, sr).float()
+    return out
 
 
 def apply_mat4_point(m, p):

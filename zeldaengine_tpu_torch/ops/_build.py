@@ -115,16 +115,16 @@ _SIGNATURES = {
     # records, rec_w, starts, ends, sstarts, sends, gbounds, pair_tri,
     # init_depth, depth, tid, keys, height, width, tile_h, tile_w, n_sx,
     # super_h, super_w, sub_rows, y_row, n_parts, min_chunks, depth_only,
-    # stream
+    # z_row, eo_stride, skipped, stream
     "zk_pair_raster": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                        _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _VP],
+                       _I, _I, _VP, _VP],
     # records ... tid (as zk_pair_raster), attrs, height, width, tile_h,
     # tile_w, n_sx, super_h, super_w, sub_rows, y_row, texture_size,
-    # need_uv, has_combo, combo_const, stream
+    # need_uv, has_combo, combo_const, z_row, eo_stride, skipped, stream
     "zk_pair_raster_fused": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                              _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _F, _VP],
+                             _I, _I, _I, _F, _I, _I, _VP, _VP],
     # shadowmap, dim_y, dim_x, shadow_coord, out, height, width, radius,
     # scale, bias, stream
     "zk_pcf_taps": [_VP, _I, _I, _VP, _VP, _I, _I, _I, _F, _F, _VP],

@@ -284,6 +284,20 @@ def _point_lighting_tiled(
     return acc.reshape(height, width, 3)
 
 
+def _upsample2(a, axis: int, n_out: int):
+    """2x bilinear upsample along ``axis`` for a signal sampled at even
+    output pixels: out[2i] = a[i], out[2i+1] = (a[i] + a[i+1]) / 2
+    (edge-clamped), cropped to ``n_out``."""
+    n = a.shape[axis]
+    nxt = torch.cat([a.narrow(axis, 1, n - 1), a.narrow(axis, n - 1, 1)],
+                    dim=axis)
+    mid = (a + nxt) * 0.5
+    out = torch.stack([a, mid], dim=axis + 1)
+    shape = list(a.shape)
+    shape[axis] = 2 * n
+    return out.reshape(shape).narrow(axis, 0, n_out)
+
+
 def reflection_color(base_color, metallic, roughness, n, v, ndotv, ao,
                      cube_atlas, cubemap_size, sky_max_mips,
                      specular=0.5, env_fetch=None, ablate: str = "",
@@ -296,21 +310,41 @@ def reflection_color(base_color, metallic, roughness, n, v, ndotv, ao,
     per-face bilinear over a (6, 2, 2, 3) table, selects and no gather),
     ``cube_pair1`` (minimum roughness >= 0.031: one row fetch of the
     half-resolution mip-pair cube at lod - 1) and the quad-packed cube
-    atlas at the reflection lod. ``env_fetch``, ``half`` and ``ablate``
-    raise.
-    """
-    if env_fetch is not None or half or ablate:
-        raise NotImplementedError(
-            "reflection options env_fetch / half / ablate are not ported "
-            "yet (ROADMAP.md A4: ops/lighting.py::reflection_color)")
+    atlas at the reflection lod.
+
+    ``env_fetch(refl_dir, mips) -> (..., >= 3)`` replaces the cube tap
+    (the merged environment table, ``ops/envtap.py``; it takes precedence
+    over every tier). ``half`` runs the tap on the even pixels of a
+    (H, W) frame and upsamples the radiance bilinearly (skipped with
+    ``env_fetch``); the BRDF and occlusion stay at full resolution.
+    ``ablate`` containing "reflgather" replaces the tap by a constant
+    radiance (a diagnostic: the tap's cost apart from its math)."""
     spec = pbr.compute_f0(specular, base_color, metallic)
     brdf = pbr.env_brdf_approx(spec, roughness, ndotv)
     r = pbr.refract(v, pbr.normalize(n), 1.0 / 1.52)
+    gather_ablated = "reflgather" in ablate
+    const_tier = (cube_const is not None and env_fetch is None
+                  and not gather_ablated)
+    # The constant-lod tier reads no lod: the mips are not computed there.
+    mips = None if const_tier else pbr.reflection_mip_from_roughness(
+        roughness, torch.tensor(float(sky_max_mips), dtype=torch.float32,
+                                device=r.device))
+    h_full = w_full = None
+    if half and r.ndim == 3 and env_fetch is None:
+        h_full, w_full = r.shape[:2]
+        r = r[::2, ::2]
+        mips = None if mips is None else mips[::2, ::2]
     refl_v = pbr.specular_occlusion(ndotv, roughness * roughness, ao)
-    if cube_const is None:
-        mips = pbr.reflection_mip_from_roughness(
-            roughness, torch.tensor(float(sky_max_mips),
-                                    dtype=torch.float32, device=r.device))
+    if const_tier:
+        refl_l = _const_lod_tap(cube_const, r)
+    elif gather_ablated:
+        refl_l = (torch.tensor([0.3, 0.4, 0.5], dtype=torch.float32,
+                               device=r.device).broadcast_to(
+                                   r.shape[:-1] + (3,))
+                  + mips[..., None] * 1e-9 + r[..., :3] * 1e-9)
+    elif env_fetch is not None:
+        refl_l = env_fetch(r, mips)[..., :3] * 10.0
+    else:
         zero_i = torch.zeros(mips.shape, dtype=torch.int32, device=r.device)
         if cube_pair1 is not None:
             # Exact whenever lod >= 1 (level k of the half-resolution chain
@@ -323,8 +357,16 @@ def reflection_color(base_color, metallic, roughness, n, v, ndotv, ao,
             refl_l = sample_cubemap_lod(
                 cube_atlas, zero_i, r, mips, cubemap_size,
                 quad=cube_atlas.shape[-1] % 13 != 0)[..., :3] * 10.0
-        return refl_l * refl_v[..., None] * brdf
+    if h_full is not None:
+        refl_l = _upsample2(_upsample2(refl_l, 0, h_full), 1, w_full)
+    return refl_l * refl_v[..., None] * brdf
 
+
+def _const_lod_tap(cube_const, r):
+    """The constant-lod tier: the bilinear tap of the fixed 2x2 mip of
+    each face, with sample_cubemap_lod's and sample_trilinear_pair's
+    uv, clamp and lerp arithmetic, as selects over the (6, 2, 2, 3)
+    table. Returns the radiance (..., 3) (times 10, as every tier)."""
     face, uv = cube_direction_to_face_uv(r)
     uv = torch.clamp(uv, 0.25, 0.75)  # sample_cubemap_lod half-texel
     u = uv[..., 0] * 2.0 - 0.5
@@ -361,8 +403,7 @@ def reflection_color(base_color, metallic, roughness, n, v, ndotv, ao,
     t11 = corner(1, 1)
     lo_top = t00 * (1 - fu) + t10 * fu
     lo_bot = t01 * (1 - fu) + t11 * fu
-    refl_l = (lo_top * (1 - fv) + lo_bot * fv) * 10.0
-    return refl_l * refl_v[..., None] * brdf
+    return (lo_top * (1 - fv) + lo_bot * fv) * 10.0
 
 
 def shade_pixels(
@@ -395,22 +436,28 @@ def shade_pixels(
     diffuse_color = base_color * (1.0 - metallic[..., None])
 
     counts = [int(c) for c in view.lights_count]
-    direct = direct_lighting(
-        diffuse_color, roughness, n, world_pos, v, ndotv, shadow_factor,
-        view.dir_lights, counts[0],
-        view.point_lights, counts[1],
-        view.spot_lights, counts[2],
-        tiled_points=tiled_points,
-        pallas_points=pallas_points,
-    )
+    if "nodirect" in ablate:  # diagnostic ablation
+        direct = torch.zeros_like(base_color)
+    else:
+        direct = direct_lighting(
+            diffuse_color, roughness, n, world_pos, v, ndotv, shadow_factor,
+            view.dir_lights, counts[0],
+            view.point_lights, counts[1],
+            view.spot_lights, counts[2],
+            tiled_points=tiled_points,
+            pallas_points=pallas_points,
+        )
     indirect = diffuse_color / math.pi * (ao * 0.3 * shadow_factor)[..., None]
-    refl = reflection_color(
-        base_color, metallic, roughness, n, v, ndotv, ao,
-        cube_atlas, cubemap_size, float(counts[3]),
-        specular=specular, env_fetch=env_fetch, ablate=ablate,
-        cube_pair1=cube_pair1, half=refl_half,
-        cube_const=cube_const,
-    )
+    if "norefl" in ablate:  # diagnostic ablation
+        refl = torch.zeros_like(base_color)
+    else:
+        refl = reflection_color(
+            base_color, metallic, roughness, n, v, ndotv, ao,
+            cube_atlas, cubemap_size, float(counts[3]),
+            specular=specular, env_fetch=env_fetch, ablate=ablate,
+            cube_pair1=cube_pair1, half=refl_half,
+            cube_const=cube_const,
+        )
     return {
         "direct": direct,
         "indirect": indirect,

@@ -19,7 +19,10 @@ Same math as ``ops/rasterize.py`` (homogeneous edge functions from
   ``pair_raster`` splits a crowded tile's pairs over several blocks and
   merges their winners exactly (``rasterize_pairs_split_plain`` is that
   merge in PyTorch); the fused kernel then interpolates the winner's
-  attributes.
+  attributes. Under the occlusion early-out (z-sorted bins without a span
+  column) a block stops walking a range once every pixel of its tile
+  lies below the range's next z bucket (``early_out_walk`` is that rule
+  in PyTorch, skip count included).
 
 Depth is evaluated in barycentric form, ``d = sum_i e_i * zc_i``: the
 algebraically-equivalent folded screen-linear form cancels
@@ -223,14 +226,16 @@ def build_pairs(
     STABLE sort: pair order within equal keys decides winners at exact
     depth ties, so both must match for the two packages to agree there.
 
+    ``align``: every walked bin (dense, supertile, global) starts on a
+    128-pair boundary; the positions between a bin's end and the next
+    bin's start hold the dead triangle id (the never-record, which covers
+    nothing). The kernels walk the same [start, end) ranges, only the
+    records move.
+
     ``gather_chunks`` / ``gather_pack`` are layouts of the record gather
     that only matter to the JAX package's schedule: accepted and ignored
-    (every value gives the same records). ``align`` is not ported.
+    (every value gives the same records).
     """
-    if align:
-        raise NotImplementedError(
-            "pair_align (slice-aligned bins) is not ported yet "
-            "(ROADMAP.md A2: build_pairs align)")
     del gather_chunks, gather_pack
     edge = setup.edge
     dev = edge.device
@@ -405,11 +410,15 @@ def build_pairs(
     off = torch.searchsorted(
         skey, torch.arange(n_bins, dtype=torch.int32, device=dev) << shift,
     ).to(torch.int32)
-    starts = off[:n_tiles]
-    ends = off[1 : n_tiles + 1]
-    sstarts = off[n_tiles : n_tiles + n_super]
-    sends = off[n_tiles + 1 : n_tiles + n_super + 1]
-    gbounds = off[n_tiles + n_super : n_tiles + n_super + 2]
+    if align:
+        stri, starts, ends, sstarts, sends, gbounds = _align_bins(
+            stri, off, n_tiles, n_super, t)
+    else:
+        starts = off[:n_tiles]
+        ends = off[1 : n_tiles + 1]
+        sstarts = off[n_tiles : n_tiles + n_super]
+        sends = off[n_tiles + 1 : n_tiles + n_super + 1]
+        gbounds = off[n_tiles + n_super : n_tiles + n_super + 2]
 
     records = rec16[stri.long()]  # (P, rec_w)
     return PairedTriangles(
@@ -422,6 +431,41 @@ def build_pairs(
         gbounds=gbounds.contiguous(),
         overflow=overflow,
     )
+
+
+def _align_bins(stri, off, n_tiles: int, n_super: int, dead_id: int):
+    """Reposition every walked bin (dense, supertile, global) to a 128-pair
+    boundary, as the JAX package's ``build_pairs(align=True)``: output
+    position j belongs to the last bin starting at or before it and reads
+    source ``off[b] + (j - aoff[b])``; positions past the bin's length hold
+    ``dead_id``. Returns (stri, starts, ends, sstarts, sends, gbounds)."""
+    dev = stri.device
+    n_walk = n_tiles + n_super + 1
+    p0 = stri.shape[0]
+    lens = off[1 : n_walk + 1] - off[:n_walk]
+    aoff = torch.cat([
+        torch.zeros((1,), dtype=torch.int32, device=dev),
+        torch.cumsum(torch.div(lens + 127, 128, rounding_mode="floor") * 128,
+                     0, dtype=torch.int32)])
+    total = p0 + 128 * n_walk  # a static bound, a multiple of 128
+    j = torch.arange(total, dtype=torch.int32, device=dev)
+    # Bin of each position: the count of bin starts at or before it, less
+    # one (coincident starts of empty bins resolve to the last of them).
+    ind = torch.zeros((total,), dtype=torch.int32, device=dev)
+    ind.index_add_(0, aoff[:n_walk].long(),
+                   torch.ones((n_walk,), dtype=torch.int32, device=dev))
+    b_j = torch.clamp(torch.cumsum(ind, 0, dtype=torch.int32) - 1, 0,
+                      n_walk - 1).long()
+    rel = j - aoff[b_j]
+    src = torch.clamp_max(off[b_j] + rel, p0 - 1)
+    stri = torch.where(rel < lens[b_j], stri[src.long()],
+                       torch.full_like(rel, dead_id))
+    starts = aoff[:n_tiles]
+    sstarts = aoff[n_tiles : n_tiles + n_super]
+    g0 = aoff[n_tiles + n_super]
+    return (stri, starts, starts + lens[:n_tiles], sstarts,
+            sstarts + lens[n_tiles : n_tiles + n_super],
+            torch.stack([g0, g0 + lens[n_tiles + n_super]]))
 
 
 # ------------------------------------------------------------ plain version
@@ -482,6 +526,30 @@ def _tile_pair_list(pairs: PairedTriangles, n_ty: int, n_tx: int,
     return _tile_pair_seq(pairs, n_ty, n_tx, tile_h, tile_w)[:2]
 
 
+def _candidates(pairs: PairedTriangles, tiles, pids, n_tx: int,
+                tile_h: int, tile_w: int, lx, ly):
+    """Depth of each (tile, pair) entry at each of the tile's pixels
+    (lx, ly), +inf where the pair does not cover it, with the kernels'
+    arithmetic in their operation order: (cand (C, TP), gx, gy)."""
+    r = pairs.records[pids][:, :12]  # (C, 12)
+    gx = (tiles % n_tx)[:, None] * tile_w + lx[None, :]  # (C, TP)
+    gy = (tiles // n_tx)[:, None] * tile_h + ly[None, :]
+    px = gx.to(torch.float32) + 0.5
+    py = gy.to(torch.float32) + 0.5
+
+    def c(i):
+        return r[:, i : i + 1]
+
+    e0 = edge_value(c(0), c(1), c(2), px, py)
+    e1 = edge_value(c(3), c(4), c(5), px, py)
+    e2 = edge_value(c(6), c(7), c(8), px, py)
+    d = plane_depth(e0, e1, e2, c(9), c(10), c(11))
+    esum = e0 + e1 + e2
+    emin = torch.minimum(torch.minimum(e0, e1), e2)
+    inside = (emin >= 0.0) & (esum > 0.0) & (d >= 0.0) & (d <= 1.0)
+    return torch.where(inside, d, torch.full_like(d, float("inf"))), gx, gy
+
+
 def _plain_visibility(pairs: PairedTriangles, height: int, width: int,
                       init_depth, tile_h: int, tile_w: int,
                       want_id: bool = True, chunk_elems: int = 1 << 22,
@@ -516,58 +584,44 @@ def _plain_visibility(pairs: PairedTriangles, height: int, width: int,
         init = torch.ones((height * width,), dtype=torch.float32, device=dev)
     else:
         init = init_depth.to(torch.float32).reshape(-1)
-    depth = init.clone()
     inf = float("inf")
     n_chunk = max(1, chunk_elems // tp)
 
     def candidates(sl):
-        t = tiles[sl]
-        r = pairs.records[pids[sl]][:, :12]  # (C, 12)
-        gx = (t % n_tx)[:, None] * tile_w + lx[None, :]  # (C, TP)
-        gy = (t // n_tx)[:, None] * tile_h + ly[None, :]
-        px = gx.to(torch.float32) + 0.5
-        py = gy.to(torch.float32) + 0.5
-
-        def c(i):
-            return r[:, i : i + 1]
-
-        e0 = edge_value(c(0), c(1), c(2), px, py)
-        e1 = edge_value(c(3), c(4), c(5), px, py)
-        e2 = edge_value(c(6), c(7), c(8), px, py)
-        d = plane_depth(e0, e1, e2, c(9), c(10), c(11))
-        esum = e0 + e1 + e2
-        emin = torch.minimum(torch.minimum(e0, e1), e2)
-        inside = (emin >= 0.0) & (esum > 0.0) & (d >= 0.0) & (d <= 1.0)
+        cand, gx, gy = _candidates(pairs, tiles[sl], pids[sl], n_tx, tile_h,
+                                   tile_w, lx, ly)
         if walk_hit is not None:
-            inside = inside & walk_hit[sl][:, warp]
-        cand = torch.where(inside, d, torch.full_like(d, inf))
+            cand = torch.where(walk_hit[sl][:, warp], cand,
+                               torch.full_like(cand, inf))
         return cand.reshape(-1), (gy * width + gx).reshape(-1)
 
     n = tiles.shape[0]
-    for s in range(0, n, n_chunk):
-        cand, pix = candidates(slice(s, s + n_chunk))
-        depth.scatter_reduce_(0, pix, cand, "amin", include_self=True)
-    # The minimum's bits are the winner's but for the sign of a zero (the
-    # scatter minimum leaves it open); a zero takes the winner's sign below.
-    if not want_id and not bool((depth == 0).any()):
-        return depth.reshape(height, width), None
-    big = torch.iinfo(torch.int64).max
-    key = torch.full((height * width,), big, dtype=torch.int64, device=dev)
+    if not want_id:
+        depth = init.clone()
+        for s in range(0, n, n_chunk):
+            cand, pix = candidates(slice(s, s + n_chunk))
+            depth.scatter_reduce_(0, pix, cand, "amin", include_self=True)
+        # The minimum's bits are the winner's but for the sign of a zero
+        # (a scatter minimum leaves it open): a zero takes the winner's
+        # sign from the keyed pass below.
+        if not bool((depth == 0).any()):
+            return depth.reshape(height, width), None
+    # One pass over 64-bit keys (kernel pair_raster's merge key): the
+    # order-preserving depth bits (-0.0 as +0.0) << 32 | (pair id + 1) << 1
+    # | sign bit, init_depth keyed as order 0. The minimum is the first
+    # minimum-depth candidate in pair order, its sign included; init wins
+    # ties.
+    key = _merge_key(init, 0)
     for s in range(0, n, n_chunk):
         sl = slice(s, s + n_chunk)
         cand, pix = candidates(sl)
-        # A candidate wins only strictly below the initial depth; the first
-        # (lowest pair id) at the minimum depth, with its sign bit.
-        hit = (cand == depth[pix]) & (cand < init[pix])
         ids = pids[sl][:, None].expand(-1, tp).reshape(-1)
-        key.scatter_reduce_(
-            0, pix, torch.where(hit, ids * 2 + torch.signbit(cand),
-                                torch.full_like(ids, big)),
-            "amin", include_self=True)
-    won = key != big
-    zero = torch.where((key & 1) == 1, -0.0, 0.0)
-    depth = torch.where(won, torch.where(depth == 0, zero, depth), init)
-    pid = torch.where(won, key >> 1, torch.full_like(key, -1))
+        key.scatter_reduce_(0, pix, _merge_key(cand, ids + 1), "amin",
+                            include_self=True)
+    order = (key & 0xFFFFFFFF) >> 1
+    won = order > 0
+    depth = torch.where(won, _key_depth(key), init)
+    pid = torch.where(won, order - 1, torch.full_like(key, -1))
     return depth.reshape(height, width), (pid.reshape(height, width)
                                           if want_id else None)
 
@@ -578,14 +632,128 @@ def _map_tid(pairs: PairedTriangles, pid):
         torch.full((), -1, dtype=torch.int32, device=pid.device))
 
 
+def _early_out_row(pairs: PairedTriangles, early_out: bool, z_row: int,
+                   eo_stride: int, y_row: int) -> int:
+    """The z bucket column the occlusion early-out reads, or -1 when it is
+    off: it needs ``early_out``, a z column and no strip-span column (the
+    JAX package forces it off under ``raster_ysort``: y-bucketed bins are
+    not sorted by z)."""
+    if not (early_out and z_row >= 0 and y_row < 0):
+        return -1
+    if z_row >= pairs.records.shape[1]:
+        raise ValueError(f"z_row {z_row} is not a column of records "
+                         f"{tuple(pairs.records.shape)}")
+    if eo_stride < 1:
+        raise ValueError(f"eo_stride must be positive, got {eo_stride}")
+    return z_row
+
+
+def early_out_walk(pairs: PairedTriangles, height: int, width: int,
+                   tile_h: int, tile_w: int, z_row: int, eo_stride: int,
+                   init_depth=None, n_parts: int = 1, min_chunks: int = 1,
+                   chunk: int = 64, chunk_elems: int = 1 << 22):
+    """The occlusion early-out of the strip walk (``csrc/strip_walk.cuh``)
+    in PyTorch: which (tile, pair) entries of ``_tile_pair_list`` a block
+    walks, and how many it skips.
+
+    Blocks are those of the kernel: a tile's sequence (dense, supertile,
+    then global range) cut into chunks of ``chunk`` pairs and into parts
+    of max(ceil(n / n_parts), min_chunks) chunks (``split_parts_of``;
+    n_parts = 1 is one block a tile). After the ``eo_stride``-th, 2
+    ``eo_stride``-th, ... chunk of its part, a block takes the maximum over
+    its tile's pixels of min(acc, init) and, for each range with pairs in
+    that chunk and not stopped yet, their largest z bucket (record column
+    ``z_row``); a range whose bucket lies strictly above that maximum is
+    stopped, and its later pairs in the part are skipped. Returns (tiles,
+    pair ids, keep (N,) bool, skipped count as a Python int)."""
+    dev = pairs.records.device
+    i64 = torch.int64
+    n_ty, n_tx = height // tile_h, width // tile_w
+    n_tiles = n_ty * n_tx
+    tiles, pids, seq = _tile_pair_seq(pairs, n_ty, n_tx, tile_h, tile_w)
+    super_h, super_w = _super_h(tile_h), _super_w(tile_w)
+    n_sx = -(-n_tx // super_w)
+    t_super = (tiles // n_tx // super_h) * n_sx + (tiles % n_tx) // super_w
+    len_d = (pairs.ends - pairs.starts).to(i64).clamp_min(0)[tiles]
+    len_s = (pairs.sends - pairs.sstarts).to(i64).clamp_min(0)[t_super]
+    rng = (seq >= len_d).to(i64) + (seq >= len_d + len_s).to(i64)
+    n_chunks = -(-torch.bincount(tiles, minlength=n_tiles) // chunk)
+    per = torch.clamp_min(-(-n_chunks // n_parts), min_chunks)[tiles]
+    ch = seq // chunk
+    part = ch // per
+    local = ch - part * per
+    block = tiles * n_parts + part
+    rnd = local // eo_stride
+    at_test = (local % eo_stride) == eo_stride - 1
+    z = pairs.records[pids, z_row]
+
+    tp = tile_h * tile_w
+    loc = torch.arange(tp, device=dev)
+    lx, ly = loc % tile_w, loc // tile_w
+    init = (torch.ones((height, width), dtype=torch.float32, device=dev)
+            if init_depth is None else init_depth.to(torch.float32))
+    init_t = init.reshape(n_ty, tile_h, n_tx, tile_w).permute(
+        0, 2, 1, 3).reshape(n_tiles, tp)
+    best = init_t.repeat_interleave(n_parts, 0).reshape(-1)
+    n_blocks = n_tiles * n_parts
+    stopped = torch.zeros((n_blocks * 3,), dtype=torch.bool, device=dev)
+    keep = torch.ones(tiles.shape, dtype=torch.bool, device=dev)
+    n_chunk = max(1, chunk_elems // tp)
+    order = torch.argsort(rnd, stable=True)
+    counts = torch.bincount(rnd).tolist() if rnd.numel() else []
+    first = 0
+    for n_k in counts:
+        idx = order[first:first + n_k]
+        first += n_k
+        gone = stopped[block[idx] * 3 + rng[idx]]
+        keep[idx[gone]] = False
+        act = idx[~gone]
+        for s0 in range(0, act.shape[0], n_chunk):
+            a = act[s0:s0 + n_chunk]
+            cand, _, _ = _candidates(pairs, tiles[a], pids[a], n_tx, tile_h,
+                                     tile_w, lx, ly)
+            best.scatter_reduce_(
+                0, (block[a][:, None] * tp + loc[None, :]).reshape(-1),
+                cand.reshape(-1), "amin", include_self=True)
+        t_sel = act[at_test[act]]
+        if t_sel.numel():
+            zb = torch.full((n_blocks * 3,), float("-inf"),
+                            dtype=torch.float32, device=dev)
+            zb.scatter_reduce_(0, block[t_sel] * 3 + rng[t_sel], z[t_sel],
+                               "amax", include_self=True)
+            eff = best.reshape(n_blocks, tp).amax(1)
+            stopped |= zb > eff.repeat_interleave(3)
+    return tiles, pids, keep, int((~keep).sum())
+
+
 def rasterize_pairs_plain(pairs: PairedTriangles, height: int, width: int,
                           init_depth=None, tile_h: int = 32,
                           tile_w: int = 128, depth_only: bool = False,
-                          sub_rows: int = 8, y_row: int = -1):
-    """Plain PyTorch version of ``rasterize_pairs`` (any device)."""
+                          sub_rows: int = 8, y_row: int = -1,
+                          early_out: bool = False, z_row: int = -1,
+                          eo_stride: int = 4, eo_skipped=None,
+                          split_parts: Optional[int] = None):
+    """Plain PyTorch version of ``rasterize_pairs`` (any device). With the
+    early-out, the pairs the kernel's blocks skip (``early_out_walk``, the
+    blocks of the split at ``split_parts``, by default ``SPLIT_PARTS`` as
+    the kernel reads it) are left out and their count added to
+    ``eo_skipped``."""
+    entries = None
+    z_eo = _early_out_row(pairs, early_out, z_row, eo_stride, y_row)
+    if z_eo >= 0:
+        parts = SPLIT_PARTS if split_parts is None else split_parts
+        tiles, pids, keep, n_skip = early_out_walk(
+            pairs, height, width, tile_h, tile_w, z_eo, eo_stride,
+            init_depth, n_parts=parts,
+            min_chunks=SPLIT_MIN_CHUNKS if parts > 1 else 1,
+            chunk=SPLIT_CHUNK)
+        entries = (tiles[keep], pids[keep])
+        if eo_skipped is not None:
+            eo_skipped += n_skip
     depth, pid = _plain_visibility(pairs, height, width, init_depth, tile_h,
                                    tile_w, want_id=not depth_only,
-                                   sub_rows=sub_rows, y_row=y_row)
+                                   entries=entries, sub_rows=sub_rows,
+                                   y_row=y_row)
     if depth_only:
         return depth
     return depth, _map_tid(pairs, pid)
@@ -718,13 +886,27 @@ def rasterize_pairs_fused_plain(pairs: PairedTriangles, height: int,
                                 texture_size: int = 256,
                                 need_uv: bool = True, has_combo: bool = True,
                                 combo_const: float = 0.0,
-                                sub_rows: int = 8, y_row: int = -1):
+                                sub_rows: int = 8, y_row: int = -1,
+                                early_out: bool = False, z_row: int = -1,
+                                eo_stride: int = 4, eo_skipped=None):
     """Plain PyTorch version of ``rasterize_pairs_fused`` (any device):
     the plain visibility pass, one gather of the winner's record row per
-    pixel, and the kernel's epilogue in the kernel's operation order."""
+    pixel, and the kernel's epilogue in the kernel's operation order. With
+    the early-out, the pairs the kernel skips (``early_out_walk``, one
+    block a tile) are left out and their count added to ``eo_skipped``."""
     dev = pairs.records.device
+    entries = None
+    z_eo = _early_out_row(pairs, early_out, z_row, eo_stride, y_row)
+    if z_eo >= 0:
+        tiles, pids, keep, n_skip = early_out_walk(
+            pairs, height, width, tile_h, tile_w, z_eo, eo_stride,
+            init_depth, chunk=SPLIT_CHUNK)
+        entries = (tiles[keep], pids[keep])
+        if eo_skipped is not None:
+            eo_skipped += n_skip
     depth, pid = _plain_visibility(pairs, height, width, init_depth, tile_h,
-                                   tile_w, sub_rows=sub_rows, y_row=y_row)
+                                   tile_w, entries=entries,
+                                   sub_rows=sub_rows, y_row=y_row)
     covered = pid >= 0
     rec = pairs.records[pid.clamp_min(0)]  # (H, W, rec_w)
     rec = torch.where(covered[..., None], rec, torch.zeros_like(rec))
@@ -948,6 +1130,14 @@ def _check_span(pairs: PairedTriangles, sub_rows: int, y_row: int):
         raise ValueError(f"sub_rows must be positive, got {sub_rows}")
 
 
+def _check_skipped(eo_skipped: Optional[torch.Tensor], dev):
+    """The early-out's skip counter: None, or an int32 tensor of one
+    element on ``dev``, to which the kernel adds."""
+    if eo_skipped is None:
+        return None
+    return _check(eo_skipped, "eo_skipped", torch.int32, (1,), dev)
+
+
 def _check_staged(pairs: PairedTriangles):
     if pairs.records.shape[1] % 4 or pairs.records.data_ptr() % 16:
         raise ValueError("records: the kernel stages 16-byte pieces of each "
@@ -966,6 +1156,10 @@ def rasterize_pairs(
     sub_rows: int = 8,
     depth_only: bool = False,
     y_row: int = -1,
+    early_out: bool = False,
+    z_row: int = -1,
+    eo_stride: int = 4,
+    eo_skipped: Optional[torch.Tensor] = None,
     backend: str = "auto",
 ):
     """Rasterize an exact pair stream to (depth, triangle-id) buffers.
@@ -978,18 +1172,27 @@ def rasterize_pairs(
     ``pair_raster_fused`` does (``strip_walk_hits``). The kernel splits a
     crowded tile over up to ``SPLIT_PARTS`` blocks (``split_parts_of``)
     and merges them exactly (``rasterize_pairs_split_plain``).
+    ``early_out`` with ``z_row`` >= 0 (the z bucket column of
+    ``build_pairs(sort_z=True)``) and no span column: each block stops a
+    range once every pixel of its tile lies strictly nearer than the
+    range's next z bucket, tested after every ``eo_stride`` chunks of 64
+    pairs (``early_out_walk``); the pair visits skipped are added to
+    ``eo_skipped``, an int32 tensor of one element, when one is given.
     Tensors on the card go to kernel ``pair_raster``; CPU tensors (or
     ``backend="torch"``) to ``rasterize_pairs_plain``, which tests the
     pairs the walk tests.
     """
     _check_span(pairs, sub_rows, y_row)
     if not _use_kernel(pairs.records, backend):
-        return rasterize_pairs_plain(pairs, height, width, init_depth,
-                                     tile_h, tile_w, depth_only, sub_rows,
-                                     y_row)
+        return rasterize_pairs_plain(
+            pairs, height, width, init_depth, tile_h, tile_w, depth_only,
+            sub_rows, y_row, early_out, z_row, eo_stride, eo_skipped,
+            split_parts=SPLIT_PARTS)
+    z_eo = _early_out_row(pairs, early_out, z_row, eo_stride, y_row)
     ptrs, geom = _check_pairs(pairs, height, width, tile_h, tile_w, 12,
                               init_depth)
     _check_staged(pairs)
+    skip_ptr = _check_skipped(eo_skipped, pairs.records.device)
     dev = pairs.records.device
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tid = None if depth_only else torch.empty(
@@ -1005,7 +1208,8 @@ def rasterize_pairs(
             None if tid is None else tid.data_ptr(),
             None if keys is None else keys.data_ptr(),
             height, width, tile_h, tile_w, *geom, int(sub_rows), int(y_row),
-            n_parts, SPLIT_MIN_CHUNKS, int(depth_only),
+            n_parts, SPLIT_MIN_CHUNKS, int(depth_only), z_eo,
+            int(eo_stride), skip_ptr,
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, "pair_raster")
     rasterize_pairs.launches += 1
@@ -1028,6 +1232,10 @@ def rasterize_pairs_fused(
     need_uv: bool = True,
     has_combo: bool = True,
     combo_const: float = 0.0,
+    early_out: bool = False,
+    z_row: int = -1,
+    eo_stride: int = 4,
+    eo_skipped: Optional[torch.Tensor] = None,
     backend: str = "auto",
 ):
     """Rasterize + interpolate in one kernel.
@@ -1040,6 +1248,8 @@ def rasterize_pairs_fused(
     span that ``build_pairs(ysort_sub_rows=sub_rows)`` appends; the kernel
     then skips, per warp, the pairs whose span misses the warp's rows or
     one of whose edges excludes the warp's pixels (``strip_walk_hits``).
+    ``early_out``, ``z_row``, ``eo_stride``, ``eo_skipped``: the occlusion
+    early-out of ``rasterize_pairs``, one block a tile.
     Tensors on the card go to kernel ``pair_raster_fused``; CPU tensors (or
     ``backend="torch"``) to ``rasterize_pairs_fused_plain``, which tests
     the pairs the walk tests.
@@ -1051,10 +1261,13 @@ def rasterize_pairs_fused(
     if not _use_kernel(pairs.records, backend):
         return rasterize_pairs_fused_plain(
             pairs, height, width, init_depth, tile_h, tile_w, texture_size,
-            need_uv, has_combo, combo_const, sub_rows, y_row)
+            need_uv, has_combo, combo_const, sub_rows, y_row, early_out,
+            z_row, eo_stride, eo_skipped)
+    z_eo = _early_out_row(pairs, early_out, z_row, eo_stride, y_row)
     ptrs, geom = _check_pairs(pairs, height, width, tile_h, tile_w, min_w,
                               init_depth)
     _check_staged(pairs)
+    skip_ptr = _check_skipped(eo_skipped, pairs.records.device)
     dev = pairs.records.device
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tid = torch.empty((height, width), dtype=torch.int32, device=dev)
@@ -1065,7 +1278,8 @@ def rasterize_pairs_fused(
             *ptrs, depth.data_ptr(), tid.data_ptr(), attrs.data_ptr(),
             height, width, tile_h, tile_w, *geom, int(sub_rows), int(y_row),
             int(texture_size), int(need_uv), int(has_combo),
-            float(combo_const), torch.cuda.current_stream().cuda_stream)
+            float(combo_const), z_eo, int(eo_stride), skip_ptr,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(code, "pair_raster_fused")
     rasterize_pairs_fused.launches += 1
     return depth, tid, attrs

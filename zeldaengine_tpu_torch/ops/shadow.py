@@ -130,23 +130,30 @@ def _coords(shadow_coord, dim_y: int, dim_x: int, bias: float):
 
 def compute_pcf_packed(shadowmap: torch.Tensor, shadow_coord: torch.Tensor,
                        radius: int = 2, scale: float = 1.5,
-                       bias: float = 0.0, batch_rows: bool = False):
+                       bias: float = 0.0, batch_rows: bool = False,
+                       _ablate_const_table: bool = False):
     """ComputePCF through a row-window table: exact (tap for tap equal to
     ``compute_pcf``) at (2r+1) row gathers per pixel.
 
     Row (y * wp + x) of the table holds sm[y, (x + lo .. x + hi) mod D]
     (wp = D + hi - lo, the wrap-padded row length); the x taps of one tap
     row then resolve from the gathered row with static channel selects.
-    ``batch_rows`` gathers the (2r+1) rows in one indexing op."""
+    ``batch_rows`` gathers the (2r+1) rows in one indexing op.
+    ``_ablate_const_table`` (the frame's ablation "pcfbuild", a
+    diagnostic) skips the table build and taps a broadcast of the map's
+    first row segment instead."""
     lo, hi = _window_span(radius, scale)
     w_win = hi - lo + 1
     dim_y, dim_x = shadowmap.shape[-2], shadowmap.shape[-1]
     wp = dim_x + w_win - 1
-    cols = torch.remainder(
-        torch.arange(wp, device=shadowmap.device) + lo, dim_x)
-    flat = shadowmap[:, cols].reshape(-1)  # the x-wrap-padded map
     span = (dim_y - 1) * wp + dim_x
-    table = torch.stack([flat[dx:dx + span] for dx in range(w_win)], 1)
+    if _ablate_const_table:
+        table = shadowmap[:1, :w_win].broadcast_to(span, w_win)
+    else:
+        cols = torch.remainder(
+            torch.arange(wp, device=shadowmap.device) + lo, dim_x)
+        flat = shadowmap[:, cols].reshape(-1)  # the x-wrap-padded map
+        table = torch.stack([flat[dx:dx + span] for dx in range(w_win)], 1)
     return _pcf_taps_from_rows(table, wp, dim_y, dim_x, shadow_coord,
                                radius, scale, bias, lo,
                                batch_rows=batch_rows)

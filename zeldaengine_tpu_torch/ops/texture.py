@@ -15,8 +15,10 @@ equivalent of the reference's repeated vkCmdBlitImage linear-filter chain).
 This module holds the NumPy atlas packers (the scene build packs on the
 host and uploads once) and the samplers: the plain RGBA atlas (bilinear
 at a level, trilinear), the neighborhood-packed atlases (one row fetch a
-tap; the mip-pair layout gives a whole trilinear sample in one fetch) and
-the cubemap tap at a per-pixel lod. Every sampler is an indexing gather
+tap; the mip-pair layout gives a whole trilinear sample in one fetch), the
+cubemap tap at a per-pixel lod, and the index and filter halves of the
+mip-pair and quad taps that the merged environment tap (``ops/envtap.py``)
+runs around its one row fetch. Every sampler is an indexing gather
 in PyTorch with the JAX package's operation order, so its results equal
 the JAX package's bit for bit.
 """
@@ -516,3 +518,185 @@ def sample_trilinear_packed(atlas4: torch.Tensor, layer, uv, lod, base: int,
         torch.clamp_max(l0 + 1, mip_count(base) - 1).to(torch.int32), base,
         quad=quad)
     return a * (1 - frac) + b * frac
+
+
+# ------------------------------------------------- merged environment tap
+# The index and filter halves of the mip-pair and quad samplers, split so
+# that ``ops/envtap.py`` can fetch one row of a merged table per pixel and
+# filter it as the slot that pixel chose. They serve only the merged tap.
+
+
+def build_quad_pair_atlas_np(images: np.ndarray) -> np.ndarray:
+    """Mip-pair atlas with 4 x-adjacent texel rows fused per table row:
+    (N, S, S, C) -> (N, S, S/2, 52C). One row then serves a full trilinear
+    sample for any of its 4 base texels (pair filtering after a 4-way base
+    select): the cubemap's rows of the merged environment table."""
+    pair = build_mip_pair_atlas(images)
+    n, s, w2, c13 = pair.shape
+    return pair.reshape(n, s, w2 // 4, 4 * c13)
+
+
+def build_quad_pair_atlas_host(images, bf16: bool = True) -> np.ndarray:
+    """``build_quad_pair_atlas_np`` + cast, on the host."""
+    return _np_to_dtype(
+        build_quad_pair_atlas_np(np.asarray(images, np.float32)), bf16)
+
+
+def build_quad_pair_atlas_device(images: torch.Tensor,
+                                 out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``build_quad_pair_atlas_np`` on the device the images lie on:
+    the same box means (each level the mean of its four parents, summed
+    in the NumPy builder's order) and the same neighbour groups."""
+    img = images.to(torch.float32)
+    n, s, s2, c = img.shape
+    assert s == s2 and (s & (s - 1)) == 0
+    dev = img.device
+    levels = [img]
+    size = s
+    while size > 1:
+        size //= 2
+        lv = levels[-1].reshape(n, size, 2, size, 2, c)
+        # np.mean over axes (2, 4): the four parents summed in order,
+        # divided by 4.
+        levels.append((((lv[:, :, 0, :, 0] + lv[:, :, 0, :, 1])
+                        + lv[:, :, 1, :, 0]) + lv[:, :, 1, :, 1]) / 4.0)
+    atlas = torch.zeros((n, s, 2 * s, 13 * c), dtype=torch.float32,
+                        device=dev)
+    for lv, level in enumerate(levels):
+        size = level.shape[1]
+        nxt = levels[min(lv + 1, len(levels) - 1)]
+        sn = nxt.shape[1]
+        i = torch.arange(size, device=dev)
+        ip = torch.clamp_max(i + 1, size - 1)
+        groups = [level, level[:, :, ip], level[:, ip, :],
+                  level[:, ip][:, :, ip]]
+        for dy in range(3):
+            gy = torch.clamp(torch.div(i, 2, rounding_mode="floor") - 1 + dy,
+                             0, sn - 1)
+            for dx in range(3):
+                gx = torch.clamp(
+                    torch.div(i, 2, rounding_mode="floor") - 1 + dx, 0,
+                    sn - 1)
+                groups.append(nxt[:, gy][:, :, gx])
+        off = mip_offset_x(lv, s)
+        atlas[:, :size, off : off + size] = torch.cat(groups, dim=-1)
+    return atlas.reshape(n, s, s // 2, 52 * c).to(out_dtype)
+
+
+def pair_row_context(layer, uv, lod, base: int):
+    """Index half of ``sample_trilinear_pair``: returns (layer, x_global,
+    y, ctx), the texel of the unquadded (N, S, 2S) pair atlas; the caller
+    maps it to a table row (of a quad-fused table: x // 4, then a select by
+    ``ctx["qj"]`` = x % 4)."""
+    dev = uv.device
+    l0, frac = _lod_split(lod, base, dev)
+    lvl = l0.to(torch.int32)
+    size_f = _level_size(base, l0)
+    offs = _mip_offsets_table(base, dev)[
+        torch.clamp(lvl, 0, mip_count(base) - 1).long()]
+
+    uw = uv[..., 0] - torch.floor(uv[..., 0])
+    vw = uv[..., 1] - torch.floor(uv[..., 1])
+    u = uw * size_f - 0.5
+    v = vw * size_f - 0.5
+    size_i = size_f.to(torch.int32)
+    x0 = _clip_int(torch.floor(u).to(torch.int32), size_i - 1)
+    y0 = _clip_int(torch.floor(v).to(torch.int32), size_i - 1)
+    fu = torch.clamp(u - x0.to(torch.float32), 0.0, 1.0)[..., None]
+    fv = torch.clamp(v - y0.to(torch.float32), 0.0, 1.0)[..., None]
+
+    s2 = torch.clamp_min(size_f * 0.5, 1.0)
+    s2_i = s2.to(torch.int32)
+    u2 = uw * s2 - 0.5
+    v2 = vw * s2 - 0.5
+    x20 = _clip_int(torch.floor(u2).to(torch.int32), s2_i - 1)
+    y20 = _clip_int(torch.floor(v2).to(torch.int32), s2_i - 1)
+    fu2 = torch.clamp(u2 - x20.to(torch.float32), 0.0, 1.0)[..., None]
+    fv2 = torch.clamp(v2 - y20.to(torch.float32), 0.0, 1.0)[..., None]
+    xg = x0 + offs.to(torch.int32)
+    half_x = torch.div(x0, 2, rounding_mode="floor")
+    half_y = torch.div(y0, 2, rounding_mode="floor")
+    ctx = {
+        "frac": frac, "fu": fu, "fv": fv, "fu2": fu2, "fv2": fv2,
+        "r": torch.clamp(x20 - (half_x - 1), 0, 1)[..., None],
+        "q": torch.clamp(y20 - (half_y - 1), 0, 1)[..., None],
+        "qj": torch.remainder(xg, 4),
+    }
+    layer = _int(layer, dev).broadcast_to(x0.shape)
+    return layer, xg, y0, ctx
+
+
+def pair_filter_row(row, ctx, c: int):
+    """Filter half of ``sample_trilinear_pair``: ``row`` is the fetched
+    (..., 13c) mip-pair texel row, kept in the atlas dtype (selects do not
+    round; each group is cast to float32 on its own, which is exact)."""
+    fu, fv, fu2, fv2, frac = (ctx["fu"], ctx["fv"], ctx["fu2"],
+                              ctx["fv2"], ctx["frac"])
+
+    def grp(i):
+        return row[..., i * c : (i + 1) * c]
+
+    def grpf(i):
+        return grp(i).to(torch.float32)
+
+    lo_top = grpf(0) * (1 - fu) + grpf(1) * fu
+    lo_bot = grpf(2) * (1 - fu) + grpf(3) * fu
+    lo = lo_top * (1 - fv) + lo_bot * fv
+
+    r0 = ctx["r"] == 0
+    q0 = ctx["q"] == 0
+
+    def nrow(dy):
+        a = torch.where(q0, grp(4 + dy * 3), grp(7 + dy * 3))
+        b = torch.where(q0, grp(5 + dy * 3), grp(8 + dy * 3))
+        cc = torch.where(q0, grp(6 + dy * 3), grp(9 + dy * 3))
+        return a, b, cc
+
+    a0, b0, c0 = nrow(0)
+    a1, b1, c1 = nrow(1)
+    t00h = torch.where(r0, a0, b0).to(torch.float32)
+    t10h = torch.where(r0, b0, c0).to(torch.float32)
+    t01h = torch.where(r0, a1, b1).to(torch.float32)
+    t11h = torch.where(r0, b1, c1).to(torch.float32)
+    hi_top = t00h * (1 - fu2) + t10h * fu2
+    hi_bot = t01h * (1 - fu2) + t11h * fu2
+    hi = hi_top * (1 - fv2) + hi_bot * fv2
+    return lo * (1 - frac) + hi * frac
+
+
+def quad_select(row, j, c4: int):
+    """Pick base j (= x % 4) out of a quad-fused row (..., 4 * c4)."""
+    half = torch.where((j[..., None] & 2) == 0, row[..., : 2 * c4],
+                       row[..., 2 * c4 : 4 * c4])
+    return torch.where((j[..., None] & 1) == 0, half[..., :c4],
+                       half[..., c4:])
+
+
+def quad_row_context(layer, uv, base: int):
+    """Index half of the quad-packed mip-0 bilinear tap (``sample_base``
+    with ``quad=True``): returns (layer, x, y, ctx)."""
+    dev = uv.device
+    size_f = float(base)
+    uw = uv[..., 0] - torch.floor(uv[..., 0])
+    vw = uv[..., 1] - torch.floor(uv[..., 1])
+    u = uw * size_f - 0.5
+    v = vw * size_f - 0.5
+    x0 = torch.clamp(torch.floor(u).to(torch.int32), 0, base - 1)
+    y0 = torch.clamp(torch.floor(v).to(torch.int32), 0, base - 1)
+    fu = torch.clamp(u - x0.to(torch.float32), 0.0, 1.0)[..., None]
+    fv = torch.clamp(v - y0.to(torch.float32), 0.0, 1.0)[..., None]
+    layer = _int(layer, dev).broadcast_to(x0.shape)
+    return layer, x0, y0, {"fu": fu, "fv": fv, "qj": torch.remainder(x0, 4)}
+
+
+def quad_filter_row(row, ctx, c: int):
+    """Filter half of the quad bilinear tap: ``row`` is the selected
+    (..., 4c) 2x2-packed group, kept in the atlas dtype."""
+    fu, fv = ctx["fu"], ctx["fv"]
+    t00 = row[..., 0:c].to(torch.float32)
+    t10 = row[..., c : 2 * c].to(torch.float32)
+    t01 = row[..., 2 * c : 3 * c].to(torch.float32)
+    t11 = row[..., 3 * c : 4 * c].to(torch.float32)
+    top = t00 * (1 - fu) + t10 * fu
+    bot = t01 * (1 - fu) + t11 * fu
+    return top * (1 - fv) + bot * fv

@@ -24,12 +24,20 @@ lights culled to screen tiles (``point_lights``; or the plain loop /
 tiled loop) -> cube reflection (constant-lod table, half-resolution
 mip-pair cube or quad atlas) -> forward objects, z-tested against the
 GBuffer depth (``pair_raster_fused`` with an initial depth, their own
-light cull and PCF) -> analytic skydome (``bilinear_tap``), or one of the
-debug views 1-9 instead of the lit frame. Opt-in: the wireframe edge
-mask (``config.wireframe``) and the validation counters
-(``config.validation``, ``aux["validation"]``). Everything else the JAX
-package's frame can do raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item; nothing is silently served by another path.
+light cull and PCF) -> analytic skydome (``bilinear_tap``) or the
+rasterized dome mesh (``pair_raster`` with ids and the frame's depth as
+its initial depth), then the background rect at z = 1 (``bilinear_tap``),
+or one of the debug views 1-9 instead of the lit frame. Opt-in: the
+wireframe edge mask (``config.wireframe``), the validation counters
+(``config.validation``, ``aux["validation"]``), the merged environment
+tap (``config.env_merge``: reflection, sky and background rows in one
+fetch, ``ops/envtap.py``), the half-resolution reflection tap
+(``config.reflection_half``), aligned pair bins (``config.pair_align``),
+the rasterizers' occlusion early-out (``config.raster_early_out``) and the
+diagnostic ablations (``config.ablate``, each a substring test as in the
+JAX package). Row bands and the PCF variants without a kernel raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item; nothing is
+silently served by another path.
 
 Every op is issued on the current CUDA stream in order: the stream is the
 dependency graph.
@@ -54,7 +62,9 @@ from zeldaengine_tpu_torch.ops.lighting import (
     cull_point_lights_tiled, shade_pixels)
 from zeldaengine_tpu_torch.ops.pcf_cuda import compute_pcf_vmem
 from zeldaengine_tpu_torch.ops.pcf_window import compute_pcf_pallas
-from zeldaengine_tpu_torch.ops.rasterize import _pixel_grid, triangle_setup
+from zeldaengine_tpu_torch.ops.envtap import sample_env_merged
+from zeldaengine_tpu_torch.ops.rasterize import (
+    _pixel_grid, interpolation_coeffs, triangle_setup)
 from zeldaengine_tpu_torch.ops.rasterize_cuda import (
     build_pairs,
     compact_setup,
@@ -72,7 +82,7 @@ from zeldaengine_tpu_torch.ops.shadow import (
     compute_pcf_window_roll,
     compute_shadow_coord,
 )
-from zeldaengine_tpu_torch.ops.texture import sample_cubemap_lod
+from zeldaengine_tpu_torch.ops.texture import sample_base, sample_cubemap_lod
 from zeldaengine_tpu_torch.ops.window_tap import sample_base_window
 from zeldaengine_tpu_torch.passes.gbuffer import (
     GBuffer,
@@ -98,19 +108,6 @@ def unported_reasons(scene: GpuScene, view, meta: SceneMeta,
         if cond:
             why.append(f"{what} is not ported yet (ROADMAP.md {item})")
 
-    no(config.env_merge, "env_merge", "A4: ops/envtap.py")
-    no(config.skydome_mode != "analytic",
-       f"skydome_mode={config.skydome_mode!r}",
-       "A5: passes/frame.py _skydome_mesh")
-    no(config.enable_background, "enable_background (the background pass)",
-       "A5: passes/frame.py background")
-    no(config.pair_align, "pair_align", "A2: build_pairs align")
-    no(config.raster_early_out, "raster_early_out",
-       "B: K1 occlusion early-out")
-    no(config.reflection_half, "reflection_half",
-       "A4: ops/lighting.py::reflection_color half")
-    no(config.ablate != "", f"ablate={config.ablate!r}",
-       "A5: passes/frame.py ablations")
     no(not full_frame, "row bands (full_frame=False)",
        "A8: parallel/tiles.py")
     no(config.pcf_backend not in _PCF_BACKENDS,
@@ -235,6 +232,52 @@ def _span_padded_rows(setup, height: int, padded: int):
                                            -1))
 
 
+def _early_out_kw(config: EngineConfig, z_row: int) -> dict:
+    """The rasterizers' occlusion early-out arguments: ``z_row`` is the
+    record column of the z sort bucket (-1 without ``raster_zsort``); the
+    kernels apply the early-out only without a strip-span column, as the
+    JAX package does."""
+    return dict(early_out=config.raster_early_out, z_row=z_row,
+                eo_stride=config.early_out_stride)
+
+
+def _raster_vis(setup, height, width, config: EngineConfig, init_depth=None):
+    """Visibility raster with triangle ids (kernel ``pair_raster``, depth
+    and ids) + tile padding: returns (depth, tid, the pair stream, live
+    triangles the compaction cap dropped). As ``_raster_vis_fused``
+    without the attribute payload; ``init_depth`` (H, W) is padded with
+    the far plane."""
+    ph = _pad_up(height, config.tile_h)
+    pw = _pad_up(width, max(config.tile_w, 128))
+    orig_t = setup.edge.shape[0]
+    setup, _, cidx, covf = _maybe_compact(setup, None, config.compact_tris,
+                                          config)
+    has_z = 1 if config.raster_zsort else 0
+    ysr = config.sub_rows if config.raster_ysort else None
+    if ysr and ph > height:
+        setup = _span_padded_rows(setup, height, ph)
+    pairs = build_pairs(setup, pw, ph, config.tile_h, config.tile_w,
+                        expand=config.pair_expand,
+                        max_pairs=config.max_pairs,
+                        sort_z=config.raster_zsort,
+                        align=config.pair_align,
+                        ysort_sub_rows=ysr,
+                        gather_chunks=config.pair_gather_chunks,
+                        gather_pack=config.pair_gather_pack,
+                        center_cull=config.subpixel_cull)
+    if cidx is not None:
+        pairs = remap_pair_tri(pairs, cidx, orig_t)
+    if init_depth is not None and (ph != height or pw != width):
+        init_depth = F.pad(init_depth, (0, pw - width, 0, ph - height),
+                           value=1.0)
+    depth, tid = rasterize_pairs(
+        pairs, ph, pw, init_depth=init_depth, tile_h=config.tile_h,
+        tile_w=config.tile_w, sub_rows=config.sub_rows,
+        y_row=(12 + has_z) if ysr else -1, backend=config.raster,
+        **_early_out_kw(config, 12 if has_z else -1))
+    return depth[:height, :width], tid[:height, :width], pairs, covf
+
+
 def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
                       meta=None, init_depth=None):
     """Fused visibility raster + attribute interpolation: returns
@@ -279,7 +322,8 @@ def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
               sub_rows=config.sub_rows, texture_size=config.texture_size,
               y_row=(12 + n_extra + has_z) if ysr else -1,
               need_uv=need_uv, has_combo=need_combo,
-              combo_const=combo_const)
+              combo_const=combo_const,
+              **_early_out_kw(config, (12 + n_extra) if has_z else -1))
     if init_depth is not None and (ph != height or pw != width):
         init_depth = F.pad(init_depth, (0, pw - width, 0, ph - height),
                            value=1.0)
@@ -333,7 +377,8 @@ def _raster_depth(setup, dim, config: EngineConfig):
                         gather_pack=config.pair_gather_pack,
                         center_cull=config.subpixel_cull)
     kw = dict(tile_h=s_th, tile_w=s_tw, sub_rows=config.sub_rows,
-              depth_only=True, y_row=(12 + has_z) if ysr else -1)
+              depth_only=True, y_row=(12 + has_z) if ysr else -1,
+              **_early_out_kw(config, 12 if has_z else -1))
     depth = rasterize_pairs(pairs, ph, pw, backend=config.raster, **kw)
     return depth[:dim, :dim], pairs, covf
 
@@ -346,8 +391,15 @@ def _shadow_factor(shadowmap, world_pos, view, config: EngineConfig,
     the tables of the window-table kernels, on maps whose width is a
     multiple of 128); "half*" half resolution + upsample; "pallas" the
     windowed kernel (approximate by design); "exact" and every fallback
-    the plain 25-gather filter."""
+    the plain 25-gather filter. Ablations (diagnostics): "nopcf" a factor
+    of ones, "pcfcoords" the coordinates without the filter, "pcfbuild"
+    the "packed" filter without its table build."""
+    if "nopcf" in config.ablate:
+        return torch.ones(world_pos.shape[:-1], dtype=torch.float32,
+                          device=world_pos.device)
     sc = compute_shadow_coord(view.shadow_space, world_pos)
+    if "pcfcoords" in config.ablate:
+        return 1.0 + sc[..., 0] * 1e-9 + sc[..., 2] * 1e-9
     kw = dict(radius=config.pcf_radius, scale=config.pcf_scale,
               bias=config.shadow_bias)
     backend = config.pcf_backend
@@ -375,8 +427,10 @@ def _shadow_factor(shadowmap, world_pos, view, config: EngineConfig,
             sf = torch.where(valid, sf, torch.ones_like(sf))
         return sf
     if backend in ("packed", "packed_b"):
-        return compute_pcf_packed(shadowmap, sc, **kw,
-                                  batch_rows=backend == "packed_b")
+        return compute_pcf_packed(
+            shadowmap, sc, **kw, batch_rows=backend == "packed_b",
+            _ablate_const_table=(backend == "packed"
+                                 and "pcfbuild" in config.ablate))
     if backend == "pallas" and sc.ndim == 3:
         # One kernel launch from the coordinate to the factor; the last
         # tiles read zero coordinates past the frame, as padding would.
@@ -499,9 +553,13 @@ def _gbuffer_vis(gbuf: GBuffer, final, view, config: EngineConfig,
 
 def resolve_lighting(gbuf: GBuffer, shadowmap, scene: GpuScene, view,
                      config: EngineConfig, tiled_points=None,
-                     pallas_points=None):
+                     pallas_points=None, env_fetch=None):
     """BaseLighting.frag main(): unpack GBuffer, light, debug switch.
-    Returns (color (H, W, 3), shadow factor (H, W))."""
+    Returns (color (H, W, 3), shadow factor (H, W)). ``env_fetch``: the
+    merged environment tap (``_env_fetch``). Ablations (diagnostics):
+    "nolight" replaces the shading by base colour x shadow factor (the
+    merged tap still runs, so that the sky and background rows flow),
+    "noswitch" returns the lit frame whatever the debug view."""
     base_color = gbuf.gbuffer_c[..., :3]
     metallic = pbr.saturate(gbuf.gbuffer_b[..., 0])
     roughness = torch.clamp_min(pbr.saturate(gbuf.gbuffer_b[..., 2]), 0.01)
@@ -513,14 +571,23 @@ def resolve_lighting(gbuf: GBuffer, shadowmap, scene: GpuScene, view,
 
     shadow_factor = _shadow_factor(shadowmap, world_pos, view, config,
                                    valid=gbuf.depth < 1.0)
-    lit = shade_pixels(
-        base_color, metallic, roughness, normal, ao, world_pos,
-        shadow_factor, view, scene.cube_atlas, config.cubemap_size,
-        cube_pair1=scene.cube_pair1, cube_const=scene.cube_const,
-        tiled_points=tiled_points, pallas_points=pallas_points,
-    )
+    if "nolight" in config.ablate:
+        lit = {"final": base_color * shadow_factor[..., None],
+               "reflection": torch.zeros_like(base_color)}
+        if env_fetch is not None:
+            # The JAX package's call, arguments as it passes them.
+            env_fetch(normal, roughness)
+    else:
+        lit = shade_pixels(
+            base_color, metallic, roughness, normal, ao, world_pos,
+            shadow_factor, view, scene.cube_atlas, config.cubemap_size,
+            cube_pair1=scene.cube_pair1, cube_const=scene.cube_const,
+            tiled_points=tiled_points, pallas_points=pallas_points,
+            env_fetch=env_fetch, ablate=config.ablate,
+            refl_half=config.reflection_half,
+        )
     final = gamma_correct(lit["final"] * mask[..., None])
-    if int(view.debug_view) == 0:
+    if int(view.debug_view) == 0 or "noswitch" in config.ablate:
         return final, shadow_factor
 
     def sf_vis():
@@ -550,7 +617,7 @@ def resolve_lighting(gbuf: GBuffer, shadowmap, scene: GpuScene, view,
 
 def forward_shade(attrs: SurfaceAttributes, shadowmap, scene: GpuScene,
                   view, config: EngineConfig, tiled_points=None,
-                  pallas_points=None):
+                  pallas_points=None, env_fetch=None):
     """Base.frag main(): forward PBR with the case-0 ShadowFactor multiply
     (after the gamma curve, as the reference's forward shader does), or
     the chosen debug view (case 9 shows the lit forward pixel)."""
@@ -561,7 +628,8 @@ def forward_shade(attrs: SurfaceAttributes, shadowmap, scene: GpuScene,
         attrs.ao, attrs.world_pos, shadow_factor, view,
         scene.cube_atlas, config.cubemap_size, tiled_points=tiled_points,
         cube_pair1=scene.cube_pair1, cube_const=scene.cube_const,
-        pallas_points=pallas_points,
+        pallas_points=pallas_points, env_fetch=env_fetch,
+        ablate=config.ablate, refl_half=config.reflection_half,
     )
     final = gamma_correct(lit["final"]) * shadow_factor[..., None]
 
@@ -652,6 +720,79 @@ def _skydome_analytic(scene, view, depth, color, height, width,
     color = torch.where(sky_mask[..., None], sky_rgb, color)
     depth = torch.where(sky_mask, sky_depth, depth)
     return color, depth
+
+
+def _skydome_mesh(scene, view, depth, color, height, width,
+                  config: EngineConfig):
+    """The skydome as rasterized geometry (the reference's own path: the
+    dome mesh, ZeldaEngine.cpp:3682-3691): its triangles, two-sided,
+    through kernel ``pair_raster`` with ids and the frame's depth as the
+    initial depth (LESS_OR_EQUAL against it), then the winner's
+    interpolated uv and one mip-0 tap of the equirect. Returns (color,
+    depth, the dome's pair stream, live triangles the compaction cap
+    dropped)."""
+    sky_world = apply_mat4_point(view.model, scene.sky_pos)
+    sky_clip = apply_mat4_h(view.view_proj, sky_world)
+    sky_tri = scene.sky_tri.long()
+    setup_sky = triangle_setup(sky_clip[sky_tri], width, config.height,
+                               two_sided=True)
+    depth_sky, tid_sky, pairs, covf = _raster_vis(
+        setup_sky, height, width, config, init_depth=depth)
+    sky_mask = tid_sky >= 0
+    bary, _ = interpolation_coeffs(setup_sky, tid_sky, height, width)
+    corner_uv = scene.sky_uv[sky_tri[torch.clamp_min(tid_sky, 0).long()]]
+    uv = (bary[..., 0:1] * corner_uv[..., 0, :]
+          + bary[..., 1:2] * corner_uv[..., 1, :]
+          + bary[..., 2:3] * corner_uv[..., 2, :])
+    tap = sample_base(scene.sky_tex, torch.zeros_like(tid_sky), uv,
+                      config.background_size, quad=True)
+    sky_rgb = gamma_correct(tap[..., :3])
+    color = torch.where(sky_mask[..., None], sky_rgb, color)
+    depth = torch.where(sky_mask, depth_sky, depth)
+    return color, depth, pairs, covf
+
+
+def _screen_uv(height, width, config: EngineConfig, device):
+    """The background rect's uv: pixel centres over the viewport."""
+    yy = (torch.arange(height, dtype=torch.float32, device=device)[:, None]
+          + 0.5) / config.height
+    xx = (torch.arange(width, dtype=torch.float32, device=device)[None, :]
+          + 0.5) / width
+    return torch.stack([xx.broadcast_to(height, width),
+                        yy.broadcast_to(height, width)], -1)
+
+
+def _background(scene, depth, color, height, width, config: EngineConfig):
+    """The background pass: a full-screen rect at z = 1 under
+    LESS_OR_EQUAL (ZeldaEngine.cpp:3693-3699), one mip-0 tap of the
+    background image per pixel the frame left at the far plane (kernel
+    ``bilinear_tap`` on ``scene.bg_planes``)."""
+    uv = _screen_uv(height, width, config, depth.device)
+    bg_mask = depth >= 1.0
+    tap, _ovf = sample_base_window(scene.bg_planes, uv, bg_mask,
+                                   config.background_size,
+                                   backend=config.raster)
+    bg_rgb = gamma_correct(tap[..., :3])
+    return torch.where(bg_mask[..., None], bg_rgb, color)
+
+
+def _env_fetch(scene, meta, config: EngineConfig, covered, sky_uv,
+               sky_hit, bg_uv, cell: dict):
+    """The merged environment tap of one pass (``reflection_color``'s
+    ``env_fetch``): one row per pixel of ``scene.env_table``, the cube's
+    for ``covered`` pixels, else the sky's where the dome is hit, else the
+    background's. The sky and background texels land in ``cell`` for the
+    compose passes."""
+
+    def env_fetch(r, mips):
+        refl, sky_rgba, bg_rgba = sample_env_merged(
+            scene.env_table, meta.env_shapes, covered, r, mips,
+            config.cubemap_size, sky_uv, sky_hit, bg_uv,
+            config.background_size, config.background_size)
+        cell.update(sky=sky_rgba, bg=bg_rgba, covered=covered)
+        return refl
+
+    return env_fetch
 
 
 def render_frame(
@@ -790,6 +931,35 @@ def render_rows(
             (config.shadowmap_dim, config.shadowmap_dim),
             dtype=torch.float32, device=dev)
 
+    # ---- merged environment tap (ops/envtap.py): one row fetch for
+    # reflection, sky and background. The sky ray runs before the resolve
+    # so that uncovered pixels' rows ride the reflection fetch.
+    use_env = (config.env_merge and scene.env_table is not None
+               and meta.env_shapes is not None
+               and config.skydome_mode == "analytic")
+    sky_on = meta.enable_skydome and config.enable_skydome
+    bg_on = meta.enable_background and config.enable_background
+    env_cells = []
+
+    def env_fetch_of(covered):
+        if not use_env:
+            return None
+        cell = {}
+        env_cells.append(cell)
+        return _env_fetch(scene, meta, config, covered, sky_uv, sky_hit,
+                          bg_uv, cell)
+
+    if use_env:
+        if sky_on:
+            sky_uv, sky_depth, sky_hit = _sky_ray(scene, view, height,
+                                                  width, config)
+        else:
+            sky_uv = torch.zeros((height, width, 2), dtype=torch.float32,
+                                 device=dev)
+            sky_hit = torch.zeros((height, width), dtype=torch.bool,
+                                  device=dev)
+        bg_uv = _screen_uv(height, width, config, dev) if bg_on else None
+
     # ---- 2. deferred scene -> GBuffer
     shadow_factor = None
     if meta.has_deferred:
@@ -818,7 +988,8 @@ def render_rows(
         tiled_points, pallas_points = culled_lights(attrs_d)
         color, shadow_factor = resolve_lighting(
             gbuf, shadowmap, scene, view, config,
-            tiled_points=tiled_points, pallas_points=pallas_points)
+            tiled_points=tiled_points, pallas_points=pallas_points,
+            env_fetch=env_fetch_of(attrs_d.covered))
         dropped(pairs_d, covf_d)
         live_pairs["gbuffer"] = pairs_d.gbounds[1]
     else:
@@ -854,7 +1025,8 @@ def render_rows(
         tiled_f, pallas_f = culled_lights(attrs_f)
         fwd_color = forward_shade(
             attrs_f, shadowmap, scene, view, config,
-            tiled_points=tiled_f, pallas_points=pallas_f)
+            tiled_points=tiled_f, pallas_points=pallas_f,
+            env_fetch=env_fetch_of(attrs_f.covered))
         color = torch.where((tid_f >= 0)[..., None], fwd_color, color)
         dropped(pairs_f, covf_f)
         live_pairs["forward"] = pairs_f.gbounds[1]
@@ -863,12 +1035,39 @@ def render_rows(
         tid_f = torch.full((height, width), -1, dtype=torch.int32,
                            device=dev)
 
+    # The first pass whose merged tap ran holds the sky and background
+    # texels (the deferred pass's; the forward pass's in forward-only
+    # scenes, or where the deferred pass's shading skipped the tap).
+    env_cell = next((c for c in env_cells if c), None)
+    show_env = int(view.debug_view) == 0
     # ---- 4c. skydome (LESS_OR_EQUAL against current depth); skipped in
     # the debug views (ZeldaEngine.cpp:3682).
-    if (meta.enable_skydome and config.enable_skydome
-            and int(view.debug_view) == 0):
-        color, depth = _skydome_analytic(
-            scene, view, depth, color, height, width, config)
+    if sky_on and show_env and "nosky" not in config.ablate:
+        if env_cell is not None:
+            # The sky texel rode the merged tap; compose it where the fetch
+            # chose the sky row (uncovered pixels).
+            sky_mask = sky_hit & (sky_depth < depth) & ~env_cell["covered"]
+            sky_rgb = gamma_correct(env_cell["sky"][..., :3])
+            color = torch.where(sky_mask[..., None], sky_rgb, color)
+            depth = torch.where(sky_mask, sky_depth, depth)
+        elif config.skydome_mode == "analytic":
+            color, depth = _skydome_analytic(
+                scene, view, depth, color, height, width, config)
+        else:
+            color, depth, pairs_sky, covf_sky = _skydome_mesh(
+                scene, view, depth, color, height, width, config)
+            dropped(pairs_sky, covf_sky)
+            live_pairs["skydome"] = pairs_sky.gbounds[1]
+
+    # ---- 4d. background (full-screen rect at z = 1, LESS_OR_EQUAL);
+    # skipped in the debug views (ZeldaEngine.cpp:3693).
+    if bg_on and show_env:
+        if env_cell is not None:
+            bg_mask = (depth >= 1.0) & ~env_cell["covered"]
+            bg_rgb = gamma_correct(env_cell["bg"][..., :3])
+            color = torch.where(bg_mask[..., None], bg_rgb, color)
+        else:
+            color = _background(scene, depth, color, height, width, config)
 
     aux = {
         "depth": depth,

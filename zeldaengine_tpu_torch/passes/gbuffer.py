@@ -95,8 +95,25 @@ def _finish_attributes(scene, config, covered, combo, uv, lod, vertex_color,
                        dpos_dy, bary_min=None,
                        var_ch=None,
                        flat_normal: bool = False) -> SurfaceAttributes:
-    """Material fetch + TBN on the interpolants of the fused kernel."""
-    texels = _material_texels(scene, config, combo, uv, lod, var_ch)
+    """Material fetch + TBN on the interpolants of the fused kernel.
+    Ablations (diagnostics, ``config.ablate``): "lodprobe" writes the
+    tap's inputs (lod / 16, combo / 64, covered) into the base colour,
+    "notex" replaces the fetch by constant texels."""
+    if "lodprobe" in config.ablate:
+        texels = torch.zeros(uv.shape[:2] + (16,), dtype=torch.float32,
+                             device=uv.device)
+        texels[..., 0] = lod / 16.0
+        texels[..., 1] = combo.to(torch.float32) / 64.0
+        texels[..., 2] = covered.to(torch.float32)
+        texels[..., 10] = 1.0
+    elif "notex" in config.ablate:
+        texels = torch.tensor(
+            [0.5] * 3 + [0.5, 0.5, 1.0] + [0.0] * 3
+            + [0.0, 0.8, 1.0, 1.0] + [0.0] * 3, dtype=torch.float32,
+            device=uv.device).broadcast_to(uv.shape[:2] + (16,)) \
+            + lod[..., None] * 1e-9
+    else:
+        texels = _material_texels(scene, config, combo, uv, lod, var_ch)
     base_color = texels[..., 0:3]
     tex_normal = texels[..., 3:6]
     emissive = texels[..., 6:9]
@@ -140,7 +157,17 @@ def surface_attributes_from_planes(
     """Build SurfaceAttributes from the fused kernel's (ATTR_CH, H, W)
     output planes (ops/rasterize_cuda.py ATTR_CH layout): the kernel
     already did the record fetch, interpolation and analytic derivatives;
-    only the material fetch + TBN remain here."""
+    only the material fetch + TBN remain here. The ablation "noattrs" (a
+    diagnostic) returns constant attributes that read only plane 0."""
+    if "noattrs" in config.ablate:
+        z1 = planes[0] * 1e-9
+        v3 = torch.stack([z1, z1, z1 + 1.0], -1)
+        return SurfaceAttributes(
+            covered=planes[0] > 0.5, world_pos=v3, normal=v3,
+            vertex_color=v3, base_color=v3 * 0.5, metallic=z1,
+            roughness=z1 + 0.5, ao=z1 + 1.0, emissive=v3 * 0.0,
+            mask=z1 + 1.0, bary_min=z1,
+        )
 
     def v(lo, hi):  # channel-major -> (H, W, C)
         return torch.movedim(planes[lo:hi], 0, -1)

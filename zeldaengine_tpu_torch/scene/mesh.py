@@ -135,11 +135,13 @@ def load_obj(path: str, backend: str = "native") -> Mesh:
 
 
 def load_mesh(path: str) -> Mesh:
-    """Load a mesh by extension. Only .obj (tinyobjloader semantics) is
-    ported; .fbx raises."""
+    """Load a mesh by extension: .obj (tinyobjloader semantics) or .fbx
+    (the binary-FBX reader of ``scene/fbx.py``; the reference's OpenFBX
+    branch parses the file and builds no vertices)."""
     if path.lower().endswith(".fbx"):
-        raise NotImplementedError(
-            "binary-FBX import is not ported yet (ROADMAP.md A3: scene/fbx)")
+        from zeldaengine_tpu_torch.scene.fbx import load_fbx
+
+        return load_fbx(path)
     return load_obj(path)
 
 

@@ -684,9 +684,20 @@ class SceneBuilder:
         env_table = None
         env_shapes = None
         if self.config.env_merge:
-            raise NotImplementedError(
-                "env_merge (merged environment table) is not ported yet "
-                "(ROADMAP.md A4: ops/envtap.py)")
+            # One (R, 208) bf16 table for the merged environment tap
+            # (ops/envtap.py): quad+pair cube rows, then the sky's and
+            # the background's quad rows, channel-padded.
+            from zeldaengine_tpu_torch.ops.envtap import flatten_env_tables
+            from zeldaengine_tpu_torch.ops.texture import (
+                build_quad_pair_atlas_host as _bqp,
+            )
+
+            cube_qp = atlas(self.cube_faces, _bqp)
+            env_table, _rows = flatten_env_tables(cube_qp, sky_tex, bg_tex)
+            env_shapes = (tuple(cube_qp.shape[:3]),
+                          tuple(sky_tex.shape[:3]),
+                          tuple(bg_tex.shape[:3]))
+            del cube_qp
 
         sky = self._sky_mesh
         scene = GpuScene(
