@@ -22,8 +22,12 @@ through the point-light kernel; and the remaining frame options on config
 3's frame (phase ``options``: the dome mesh through the pair rasterizer with
 ids and an initial depth, the background pass, the merged environment tap,
 the occlusion early-out on aligned pair bins, config 3t's half-resolution
-reflection, every ablation flag). Every kernel is replayed on the inputs a frame
-gave it and held against its plain PyTorch version on the card, and timed as
+reflection, every ablation flag); and row bands (phase ``bands``: config
+3's frame striped over four and eight bands and in four contiguous bands,
+and config 5's world in four contiguous bands, through
+``parallel/tiles.py`` on one card, each against the full frame; every
+K1 / K2 band call replayed). Every kernel is replayed on the inputs a
+frame gave it and held against its plain PyTorch version on the card, and timed as
 device time (its calls replayed from a CUDA graph, ``ms``) and as events around
 eager calls (``eager_ms``, which includes the host's cost per call where that
 is the larger); 256x256 frames rendered through the kernels are held against
@@ -68,11 +72,15 @@ from zeldaengine_tpu_torch.ops import pcf_cuda, rasterize as rast  # noqa: E402
 from zeldaengine_tpu_torch.ops import pcf_tables, pcf_window  # noqa: E402
 from zeldaengine_tpu_torch.ops import rasterize_cuda as rc  # noqa: E402
 from zeldaengine_tpu_torch.ops import shadow, window_tap  # noqa: E402
+from zeldaengine_tpu_torch.parallel import (  # noqa: E402
+    band_pair_stats, make_tile_mesh, render_frame_sharded, stripe_layout)
 from zeldaengine_tpu_torch.passes import build_view_state, render_frame  # noqa: E402
 from zeldaengine_tpu_torch.passes import frame as frame_graph  # noqa: E402
 from zeldaengine_tpu_torch.scene import (  # noqa: E402
     CameraDesc, LightDesc, SceneBuilder, World, build_demo_scene,
     build_textured_demo_scene, make_demo_world, make_sphere)
+from zeldaengine_tpu_torch.scene.assets import (  # noqa: E402
+    build_scene_from_world)
 from zeldaengine_tpu_torch.scene.demo import build_golden_scene  # noqa: E402
 from zeldaengine_tpu_torch.utils.image import read_png  # noqa: E402
 
@@ -157,6 +165,18 @@ OPTION_FRAMES = {
                       dict(MAIN_PATH, pcf_taps=0, bilinear_tap=0,
                            point_lights=0)),
 }
+# Phase bands: (case, scene, devices, striped) - config 3's frame striped
+# over 4 and 8 bands and contiguous over 4 (270-row bands, which start
+# inside a 64-row tile row), and config 5's world contiguous over 4, on one
+# card.
+BAND_CASES = (("config3_striped_4", "config3", 4, True),
+              ("config3_striped_8", "config3", 8, True),
+              ("config3_contiguous_4", "config3", 4, False),
+              ("config5_contiguous_4", "config5", 4, False))
+# The PCF backends without a kernel (plain PyTorch on the card), one
+# config-3 frame each against the exact filter; all but half_y4 are exact.
+PCF_PLAIN_BACKENDS = ("packed_y4", "packed_y8", "packed4", "packed8",
+                      "packed16", "window1", "half_y4")
 # Scenes built by one phase for another (config 3t's, for phase options).
 SCENES = {}
 GOLDEN_VIEWS = {"final": 0, "basecolor": 1, "normals": 4, "shadow": 8,
@@ -343,12 +363,13 @@ def recorded_calls(calls: dict):
 
 
 def needed_tests(pairs: rc.PairedTriangles, setup, height, width, tile_h,
-                 tile_w):
+                 tile_w, y0_tiles: int = 0):
     """(pixel, pair) tests the function needs on this pair stream, and the
     tests of a walk without skips. A pair can only cover pixels whose centre
     lies inside its triangle's bbox, so for every (tile, pair) of the dense,
     supertile and global ranges only the pixel centres of bbox & tile are
-    counted; a walk without skips tests all tile_h * tile_w pixels."""
+    counted; a walk without skips tests all tile_h * tile_w pixels. In a
+    row band (``y0_tiles``) the tiles lie y0_tiles tile rows down."""
     n_ty, n_tx = height // tile_h, width // tile_w
     tile, pair = rc._tile_pair_list(pairs, n_ty, n_tx, tile_h, tile_w)
     bbox = setup.bbox[pairs.pair_tri.long()[pair]]
@@ -361,8 +382,8 @@ def needed_tests(pairs: rc.PairedTriangles, setup, height, width, tile_h,
 
     nx = centres(bbox[:, 0], bbox[:, 2], (tile % n_tx).float() * tile_w,
                  tile_w)
-    ny = centres(bbox[:, 1], bbox[:, 3], (tile // n_tx).float() * tile_h,
-                 tile_h)
+    ny = centres(bbox[:, 1], bbox[:, 3],
+                 (tile // n_tx + y0_tiles).float() * tile_h, tile_h)
     return int((nx * ny).double().sum()), int(tile.numel()) * tile_h * tile_w
 
 
@@ -375,7 +396,8 @@ def strip_walk_load(pairs, height, width, kw, split: bool = False) -> dict:
     (rc.split_parts_of at its default part sizes)."""
     th, tw = kw["tile_h"], kw["tile_w"]
     per = rc.strip_walk_tests(pairs, height, width, th, tw,
-                              kw.get("sub_rows", 8), kw.get("y_row", -1))
+                              kw.get("sub_rows", 8), kw.get("y_row", -1),
+                              kw.get("y0_tiles", 0))
     per_tile = per.sum(1)
     busy = per[per > 0].double()
     hist = torch.bincount(torch.floor(torch.log2(busy)).long()) \
@@ -393,7 +415,8 @@ def strip_walk_load(pairs, height, width, kw, split: bool = False) -> dict:
     if split:
         tiles, _, hit = rc.strip_walk_hits(pairs, height, width, th, tw,
                                            kw.get("sub_rows", 8),
-                                           kw.get("y_row", -1))
+                                           kw.get("y_row", -1),
+                                           kw.get("y0_tiles", 0))
         _, _, part, split_tiles = rc.split_parts_of(pairs, height, width,
                                                     th, tw)
         n_parts = rc.SPLIT_PARTS
@@ -416,7 +439,8 @@ def raster_bound(pairs, setup, height, width, kw, out_words: int,
     frame the pairs came from (the ``bound`` line's label). ``pairs`` as
     ``build_pairs`` returned them: ``pair_tri`` indexes ``setup``'s rows."""
     tests, all_tests = needed_tests(pairs, setup, height, width,
-                                    kw["tile_h"], kw["tile_w"])
+                                    kw["tile_h"], kw["tile_w"],
+                                    kw.get("y0_tiles", 0))
     kernel_tests = walk["tests"]
     live = int(pairs.gbounds[1])
     n_bytes = (live * pairs.records.shape[1] * 4 + live * 4
@@ -506,11 +530,14 @@ def random_pairs(seed, n, height, width, tile_h, tile_w, extra_w=0,
                           **pair_kw)
 
 
-def crowded_pairs(seed=11, n=3000, dim=256, tile=(64, 32)):
+def crowded_pairs(seed=11, n=3000, dim=256, tile=(64, 32), y0_tiles=0,
+                  rows=None):
     """A pair stream whose tiles are crowded: ``n`` small triangles (a few
     texels wide, depths in (0.1, 0.9), some coincident) over one 64x32
-    tile of a ``dim``^2 map, plus a sparse background, binned as the
-    shadow map bins (z sort, 8-row strips)."""
+    tile of a ``dim``^2 map (its tile row 1), plus a sparse background,
+    binned as the shadow map bins (z sort, 8-row strips); with ``y0_tiles``
+    / ``rows``, binned for the row band of ``rows`` map rows from tile row
+    ``y0_tiles``."""
     rng = np.random.default_rng(seed)
     th, tw = tile
     x0, y0 = 96.0, 64.0  # the crowded tile's corner, in texels
@@ -529,8 +556,9 @@ def crowded_pairs(seed=11, n=3000, dim=256, tile=(64, 32)):
                      np.ones_like(z)], -1).astype(np.float32)
     setup = rast.triangle_setup(torch.from_numpy(clip).cuda(), dim, dim,
                                 two_sided=True)
-    return rc.build_pairs(setup, dim, dim, th, tw, sort_z=True,
-                          ysort_sub_rows=8, expand=8)
+    return rc.build_pairs(setup, dim, dim if rows is None else rows, th, tw,
+                          sort_z=True, ysort_sub_rows=8, expand=8,
+                          y0_tiles=y0_tiles)
 
 
 # Kernel pcf_taps's blocks of pixels (kBlockX x kBlockY) and the texels of
@@ -1967,7 +1995,40 @@ def phase_pcf_backends(scene, meta, world, config, captured: dict) -> dict:
         key = kernel + ("_half" if backend == "half_wr" else "")
         captured[key] = noted[kernel]
         out[backend] = res
-    emit("pcf_backends", covered_pixels=int(covered.sum()), **out)
+    # The backends without a kernel (plain PyTorch on the card) against the
+    # exact filter's frame: K3 never runs; every one but half_y4 gives the
+    # exact factor at every covered pixel.
+    _, _, exact_aux = noted_frame(scene, meta, world,
+                                  config.replace(pcf_backend="exact"),
+                                  view_kw)
+    exact = exact_aux["shadow_factor"][covered]
+    want = {k: v for k, v in MAIN_PATH.items() if k != "pcf_taps"}
+    plain = {}
+    for backend in PCF_PLAIN_BACKENDS:
+        cfg = config.replace(pcf_backend=backend)
+        ops.reset_kernel_launch_counts()
+        _, image, aux = noted_frame(scene, meta, world, cfg, view_kw)
+        check_launches(ops.kernel_launch_counts(), want,
+                       f"pcf_backend={backend}")
+        check(torch.equal(aux["tri_id"], base_aux["tri_id"]),
+              f"{backend}: the raster changed")
+        diff = (aux["shadow_factor"][covered] - exact).abs()
+        res = dict(differing_fraction=float((diff > 0).float().mean()),
+                   max_abs_diff=float(diff.max()),
+                   mean_abs_diff=float(diff.mean()),
+                   image_max_abs_diff=float((image - base_img).abs().max()))
+        if backend == "half_y4":
+            # Reported, as "half_wr" is: the JAX package bounds it only on
+            # a smooth field (tests/test_shadow.py:305-307).
+            res["off_by_two_quanta_fraction"] = float(
+                (diff > 2 * 0.037).float().mean())
+        else:
+            check(res["max_abs_diff"] == 0.0,
+                  f"{backend}: the factor differs from the exact filter's "
+                  f"at {int((diff > 0).sum())} covered pixels")
+        plain[backend] = res
+    emit("pcf_backends", covered_pixels=int(covered.sum()),
+         without_kernel=plain, **out)
     return launches_sum
 
 
@@ -1999,19 +2060,22 @@ def seeded_images(seed: int = 31):
         SceneBuilder.build = build
 
 
-def occluded_tile_pairs(n=3000, seed=12):
+def occluded_tile_pairs(n=3000, seed=12, band: bool = False):
     """The early-out's constructed case: a 128x128 frame in 64x32 tiles, a
     full-screen quad at depth 0.05 in front of ``n`` small triangles
     (depths 0.3-0.9) crowding tile (0, 0), binned front to back (no span
-    column) with a fused payload. Returns (pairs, z column)."""
+    column) with a fused payload. Returns (pairs, z column). ``band``: the
+    triangles crowd tile (1, 0) instead, binned for the band of tile row 1
+    (64 rows, ``y0_tiles=1``)."""
     rng = np.random.default_rng(seed)
     dim = 128
     quad = np.array([[[-1, -1], [1, -1], [1, 1]],
                      [[-1, -1], [1, 1], [-1, 1]]], np.float32)
     cx = rng.uniform(0.0, 32.0, (n, 1))
-    cy = rng.uniform(0.0, 64.0, (n, 1))
+    y_lo = 64.0 if band else 0.0
+    cy = rng.uniform(y_lo, y_lo + 64.0, (n, 1))
     px = np.clip(cx + rng.uniform(-3.0, 3.0, (n, 3)), 0.0, 32.0)
-    py = np.clip(cy + rng.uniform(-3.0, 3.0, (n, 3)), 0.0, 64.0)
+    py = np.clip(cy + rng.uniform(-3.0, 3.0, (n, 3)), y_lo, y_lo + 64.0)
     xy = np.concatenate([quad, np.stack([px, py], -1) / dim * 2.0 - 1.0])
     z = np.concatenate([np.full((2, 3, 1), 0.05),
                         np.repeat(rng.uniform(0.3, 0.9, (n, 1, 1)), 3, 1)])
@@ -2020,8 +2084,9 @@ def occluded_tile_pairs(n=3000, seed=12):
                                 two_sided=True)
     extra = torch.from_numpy(rng.random((n + 2, rc.fused_extra_width()))
                              .astype(np.float32)).cuda()
-    pairs = rc.build_pairs(setup, dim, dim, 64, 32, expand=8, sort_z=True,
-                           extra=extra)
+    pairs = rc.build_pairs(setup, dim, 64 if band else dim, 64, 32,
+                           expand=8, sort_z=True, extra=extra,
+                           y0_tiles=1 if band else 0)
     return pairs, 12 + rc.fused_extra_width()
 
 
@@ -2245,6 +2310,325 @@ def phase_options():
     return m_calls, launches_sum, n_sum, extra
 
 
+def band_launches(n: int, calls: int) -> dict:
+    """Launches of one banded frame of ``n`` shadow bands and ``calls``
+    ``render_rows`` calls: K1 once a shadow band; K2-K5 once a call; kernel
+    fma 11 a shadow band (the pair positions' transform 2, the shadow clip
+    transform 2, the biased setup 7) and 7 a call (positions and normals 2,
+    the clip transform 2, the GBuffer setup 3)."""
+    return {"pair_raster": n, "pair_raster_fused": calls, "pcf_taps": calls,
+            "bilinear_tap": calls, "point_lights": calls,
+            "fma": 11 * n + 7 * calls}
+
+
+def depth_tie_ids(setup, y0: int, ids_a, ids_b, depth) -> dict:
+    """Where a band's triangle ids differ from the full frame's, both
+    triangles must cover the pixel at its depth exactly (the plain walk's
+    arithmetic): a tie, which the pair order decides, and a band bins a
+    large triangle into other ranges than the full frame does (its tile
+    count is clipped to the band). ``setup`` is the pass's (ids are its
+    rows)."""
+    where = (ids_a != ids_b).nonzero()
+    for r, c in where.tolist():
+        px = torch.tensor(c + 0.5, device=depth.device)
+        py = torch.tensor(float(y0 + r) + 0.5, device=depth.device)
+        for t in (int(ids_a[r, c]), int(ids_b[r, c])):
+            e = setup.edge[t]
+            ev = [rast.edge_value(e[i, 0], e[i, 1], e[i, 2], px, py)
+                  for i in range(3)]
+            d = rast.plane_depth(*ev, *setup.zc[t])
+            check(t >= 0 and bool(d == depth[r, c])
+                  and min(float(x) for x in ev) >= 0.0,
+                  f"band pixel ({y0 + r}, {c}): triangle {t} does not cover "
+                  f"it at its depth {float(depth[r, c])} (got {float(d)})")
+    return dict(id_mismatches=int(where.shape[0]),
+                id_mismatches_all_exact_depth_ties=True)
+
+
+def band_replays(calls: dict) -> tuple:
+    """Every K1 and K2 call of a banded frame with ``y0_tiles`` > 0 against
+    its plain version (bit for bit, ids included), and K1's band outputs in
+    call order (the shadow bands, top to bottom)."""
+    out = {}
+    bands = []
+    for name, wrapper, fused in (("pair_raster", rc.rasterize_pairs, False),
+                                 ("pair_raster_fused",
+                                  rc.rasterize_pairs_fused, True)):
+        errs, ids, n = [], 0, 0
+        for args, kw in calls["all:" + name]:
+            k = wrapper(*args, backend="cuda", **kw)
+            if name == "pair_raster":
+                bands.append(k)
+            if kw.get("y0_tiles", 0) == 0:
+                continue
+            res = compare_raster(k, wrapper(*args, backend="torch", **kw),
+                                 fused)
+            errs.append(res["max_abs_err"])
+            ids += res.get("id_mismatches", 0)
+            n += 1
+        check(n > 0, f"{name}: no call with y0_tiles > 0")
+        out[name] = dict(calls_y0_tiles_positive=n,
+                         calls=len(calls["all:" + name]),
+                         max_abs_err=max(errs), id_mismatches=ids)
+    return out, bands
+
+
+def band_kernel_times(calls: dict, name: str, wrapper, out_words: int,
+                      what: str) -> dict:
+    """The device time, plain time and bound of the band call of ``name``
+    with the most live pairs among those with ``y0_tiles`` > 0."""
+    cands = [(args, kw) for args, kw in calls["all:" + name]
+             if kw.get("y0_tiles", 0) > 0]
+    args, kw = max(cands, key=lambda c: int(c[0][0].gbounds[1]))
+    built = [b for b in calls["build_pairs"]
+             if b[1].records is args[0].records]
+    check(len(built) == 1, f"{name}: the band's pairs are not build_pairs'")
+    setup, pairs = built[0]
+    call = lambda: wrapper(*args, backend="cuda", **kw)  # noqa: E731
+    return dict(band=what, y0_tiles=kw["y0_tiles"],
+                rows=args[1], ms=graph_ms(call, 10),
+                plain_ms=cuda_ms(lambda: wrapper(*args, backend="torch",
+                                                 **kw), 1),
+                **raster_bound(pairs, setup, args[1], args[2], kw, out_words,
+                               walk=strip_walk_load(pairs, args[1], args[2],
+                                                    kw),
+                               path=f"bands: {what}"))
+
+
+def band_edge_cases() -> dict:
+    """K1 on a crowded tile of a band (split over blocks) and K1 / K2 with
+    the occlusion early-out in a band, against their plain versions, skip
+    counts included."""
+    out = {}
+    crowd = crowded_pairs(y0_tiles=1, rows=128)
+    split_tiles = rc.split_parts_of(crowd, 128, 256, 64, 32)[3]
+    check(bool(split_tiles.any()), "bands: the crowded band splits no tile")
+    kw = dict(tile_h=64, tile_w=32, sub_rows=8, y_row=13, y0_tiles=1)
+    for depth_only in (True, False):
+        out[f"crowded band, depth_only={depth_only}"] = dict(
+            compare_raster(
+                rc.rasterize_pairs(crowd, 128, 256, backend="cuda",
+                                   depth_only=depth_only, **kw),
+                rc.rasterize_pairs(crowd, 128, 256, backend="torch",
+                                   depth_only=depth_only, **kw), False),
+            split_tiles=int(split_tiles.sum()))
+    pairs, z_col = occluded_tile_pairs(band=True)
+    eo = dict(tile_h=64, tile_w=32, early_out=True, z_row=z_col,
+              eo_stride=1, y0_tiles=1)
+    for name, fn, fused in (("pair_raster", rc.rasterize_pairs, False),
+                            ("pair_raster_fused", rc.rasterize_pairs_fused,
+                             True)):
+        for parts in ((rc.SPLIT_PARTS, 1) if name == "pair_raster"
+                      else (1,)):
+            saved = rc.SPLIT_PARTS
+            rc.SPLIT_PARTS = parts
+            try:
+                sk = torch.zeros(1, dtype=torch.int32, device="cuda")
+                sp = torch.zeros(1, dtype=torch.int32, device="cuda")
+                res = compare_raster(
+                    fn(pairs, 64, 128, backend="cuda", eo_skipped=sk, **eo),
+                    fn(pairs, 64, 128, backend="torch", eo_skipped=sp, **eo),
+                    fused)
+            finally:
+                rc.SPLIT_PARTS = saved
+            check(int(sk) == int(sp) and int(sk) > 0,
+                  f"bands: {name} early-out skipped {int(sk)} pair visits, "
+                  f"the plain version {int(sp)}")
+            out[f"{name} early-out band, split parts {parts}"] = dict(
+                res, skipped=int(sk))
+    return out
+
+
+def timed_calls(fn, warm: int, timed: int):
+    """(median device ms by CUDA events, median host ms) of ``fn``."""
+    dev_ms, host_ms = [], []
+    for i in range(warm + timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.time()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        if i >= warm:
+            dev_ms.append(start.elapsed_time(end))
+            host_ms.append((time.time() - t0) * 1e3)
+    return statistics.median(dev_ms), statistics.median(host_ms)
+
+
+def phase_bands(scene, meta, world, config):
+    """Row bands (``parallel/tiles.py``) on one card: config 3's frame
+    striped over [cuda:0] * 4 and * 8 (5 and 3 strips of 64 rows a device,
+    the last strips past row 1080; shadow bands of 256 and 128 rows), in
+    four contiguous bands of 270 rows (K1/K2 render the tile rows that
+    hold each band; the band is cropped out of them) and
+    config 5's world at 512x512 in contiguous bands of 128 rows over
+    [cuda:0] * 4. Each banded frame against the full frame of the same
+    scene and view: launches, the image (golden criterion; a differing
+    pixel lies where a band's GBuffer id differs, or differs through the
+    point-light cull alone: a band's light blocks start at its own row and
+    the cull's screen rectangles are not conservative, so with the lights
+    unculled no other pixel may differ; ROADMAP.md §C), the gathered
+    shadow map bit for bit, every band's GBuffer through ``render_rows``:
+    depth bit for bit, ids but at exact depth ties (``depth_tie_ids``); every
+    K1 / K2 call with y0_tiles > 0 replayed against its plain version;
+    device-busy time and frame_ms beside the full frame's;
+    ``band_pair_stats`` striped against contiguous. With more than one
+    card, config 3 striped over the distinct cards too."""
+    c5 = config5()
+    w5 = config5_world()
+    s5, m5 = build_scene_from_world(w5, c5)
+    scenes = {"config3": (scene, meta, world, config),
+              "config5": (s5, m5, w5, c5)}
+    out, launches_sum, frames = {}, {}, 0
+    kernel_extra = {"pair_raster": {}, "pair_raster_fused": {}}
+    for case, which, n, stripe in BAND_CASES:
+        sc, me, wo, cfg = scenes[which]
+        mesh = make_tile_mesh([torch.device("cuda", 0)] * n)
+        view = build_view_state(wo, cfg, time=0.5, roll_light=0.6)
+        full, full_aux = render_frame(sc, view, me, cfg)
+        ops.reset_kernel_launch_counts()
+        with recorded_calls({}) as calls:
+            banded = render_frame_sharded(sc, view, me, cfg, mesh,
+                                          stripe=stripe)
+        torch.cuda.synchronize()
+        launches = ops.kernel_launch_counts()
+        n_calls = n * stripe_layout(cfg, n)[0] if stripe else n
+        want = band_launches(n, n_calls)
+        check_launches(launches, want, f"bands {case}")
+        for k, v in want.items():
+            got = len(calls.get("all:" + k, []))
+            check(got == v, f"bands {case}: {k} called {got} times, "
+                  f"expected {v}")
+        for k, v in launches.items():
+            launches_sum[k] = launches_sum.get(k, 0) + v
+        frames += 1
+        check(tuple(banded.shape) == tuple(full.shape)
+              and banded.device == full.device,
+              f"bands {case}: image {tuple(banded.shape)} on {banded.device}")
+        image = golden(banded, full)
+        image["pixels_differing"] = int((banded != full).any(-1).sum())
+        replays, bands = band_replays(calls)
+        gathered = torch.cat(bands, 0)[:, :cfg.shadowmap_dim]
+        full_map = full_aux["shadowmap"]
+        check(torch.equal(gathered.view(torch.int32),
+                          full_map.view(torch.int32)),
+              f"bands {case}: the gathered shadow map differs from the "
+              f"full frame's at {int((gathered != full_map).sum())} texels")
+        # Every band again through render_rows on the full frame's map:
+        # its GBuffer against the full frame's rows.
+        th = cfg.tile_h
+        if stripe:
+            bands_rows = [((i + s * n) * th, th) for i in range(n)
+                          for s in range(stripe_layout(cfg, n)[0])]
+        else:
+            bands_rows = [(i * (cfg.height // n), cfg.height // n)
+                          for i in range(n)]
+        mism = torch.zeros(full.shape[:2], dtype=torch.bool,
+                           device=full.device)
+        ties = dict(id_mismatches=0, id_mismatches_all_exact_depth_ties=True)
+        for y0, rows in bands_rows:
+            r1 = min(rows, cfg.height - y0)
+            if r1 <= 0:
+                continue
+            with recorded_calls({}) as band_calls:
+                _, band_aux = frame_graph.render_rows(
+                    sc, view, me, cfg, y0=y0, rows=rows, full_frame=False,
+                    shadowmap_override=full_aux["shadowmap"])
+            a = band_aux["gbuffer_depth"][:r1]
+            b = full_aux["gbuffer_depth"][y0:y0 + r1]
+            check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                  f"bands {case}: band rows {y0}-{y0 + r1}: GBuffer depth "
+                  f"differs at {int((a != b).sum())} pixels")
+            ids, full_ids = band_aux["tri_id"][:r1], \
+                full_aux["tri_id"][y0:y0 + r1]
+            ties["id_mismatches"] += depth_tie_ids(
+                band_calls["build_pairs"][0][0], y0, ids, full_ids,
+                a)["id_mismatches"]
+            mism[y0:y0 + r1] = ids != full_ids
+        outside = int(((banded != full).any(-1) & ~mism).sum())
+        outside_unculled = 0
+        if outside:
+            # The lights' screen rectangles are not conservative (both
+            # packages), and a band's light blocks start at its own first
+            # row: without the cull (all slots, the plain loop) every
+            # such pixel must agree.
+            cu = cfg.replace(point_light_kernel="unroll")
+            unculled = render_frame_sharded(sc, view, me, cu, mesh,
+                                            stripe=stripe)
+            outside_unculled = int(((unculled != render_frame(
+                sc, view, me, cu)[0]).any(-1) & ~mism).sum())
+            check(outside_unculled == 0,
+                  f"bands {case}: {outside_unculled} image pixels differ "
+                  "from the full frame where the GBuffer ids agree, the "
+                  "point lights unculled")
+        band_ms, band_host_ms = timed_calls(
+            lambda: render_frame_sharded(sc, view, me, cfg, mesh,
+                                         stripe=stripe), 1, 3)
+        full_ms, full_host_ms = timed_calls(
+            lambda: render_frame(sc, view, me, cfg), 1, 3)
+        busy = device_profile(
+            lambda: render_frame_sharded(sc, view, me, cfg, mesh,
+                                         stripe=stripe),
+            f"profile_bands_{case}")
+        full_busy = device_profile(lambda: render_frame(sc, view, me, cfg),
+                                   f"profile_bands_{case}_full_frame")
+        stats = {}
+        if which == "config3" and stripe:
+            for layout in ("striped", "contiguous"):
+                st = band_pair_stats(sc, view, me, cfg, mesh,
+                                     stripe=layout == "striped")
+                stats[layout] = dict(
+                    per_device=st.tolist(),
+                    pairs_max_over_mean=float(st[:, 1].max()
+                                              / st[:, 1].mean()),
+                    live_max_over_mean=float(st[:, 0].max()
+                                             / st[:, 0].mean()))
+        if case == "config3_striped_4":
+            kernel_extra["pair_raster"] = band_kernel_times(
+                calls, "pair_raster", rc.rasterize_pairs, 1,
+                "config 3 shadow band, [cuda:0] * 4")
+            kernel_extra["pair_raster_fused"] = band_kernel_times(
+                calls, "pair_raster_fused", rc.rasterize_pairs_fused,
+                2 + rc.ATTR_CH, "config 3 strip, [cuda:0] * 4")
+        out[case] = dict(
+            devices=n, striped=stripe, render_rows_calls=n_calls,
+            shadow_band_rows=cfg.shadowmap_dim // n,
+            launches=launches, image_vs_full_frame=image,
+            gbuffer_vs_full_frame=dict(
+                bands=len(bands_rows), depth_bits_equal=True,
+                image_pixels_differing_where_ids_agree=outside,
+                same_lights_unculled=outside_unculled, **ties),
+            replays=replays, frame_ms=band_ms, host_frame_ms=band_host_ms,
+            full_frame_ms=full_ms, full_host_frame_ms=full_host_ms,
+            device_busy_ms=busy["device_busy_ms"],
+            device_launches=busy["device_launches"],
+            full_device_busy_ms=full_busy["device_busy_ms"],
+            full_device_launches=full_busy["device_launches"],
+            band_pair_stats=stats)
+    edge = band_edge_cases()
+    multi = None
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1 and config.shadowmap_dim % n_cards == 0:
+        mesh = make_tile_mesh()
+        view = build_view_state(world, config, time=0.5, roll_light=0.6)
+        full, _ = render_frame(scene, view, meta, config)
+        multi = dict(devices=n_cards, image_vs_full_frame=golden(
+            render_frame_sharded(scene, view, meta, config, mesh), full))
+    emit("bands", cases=out, edge_cases=edge, distinct_cards=multi,
+         launches=launches_sum, frames=frames)
+    for name in kernel_extra:
+        kernel_extra[name] = {"bands": dict(
+            kernel_extra[name],
+            launches_per_banded_frame={c: out[c]["launches"][name]
+                                       for c in out},
+            replays={c: out[c]["replays"][name] for c in out},
+            edge_cases={k: v for k, v in edge.items()
+                        if ("pair_raster_fused" in k)
+                        == (name == "pair_raster_fused")})}
+    return kernel_extra
+
+
 def device_profile(fn, phase: str) -> dict:
     """Where one call of ``fn`` (ending in a synchronise) spends device
     time: the ten device operations with the largest summed time
@@ -2456,10 +2840,12 @@ def main() -> None:
         paths[path], path_launches[path] = c, counts
     noted, counts, n, options_extra = timed("options", phase_options)
     paths["options"], path_launches["options"] = noted, per_frame(counts, n)
+    bands_extra = timed("bands", phase_bands, scene, meta, world, config)
     rows = timed("kernels", phase_kernels, captured, launches, paths,
                  path_launches)
     for row in rows:
         row.update(options_extra.get(row["name"], {}))
+        row.update(bands_extra.get(row["name"], {}))
     check(not FAILURES, "; ".join(FAILURES))
     timed("frame_vs_plain", phase_frame_vs_plain)
     timed("engine", phase_engine)

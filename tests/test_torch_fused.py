@@ -1,24 +1,17 @@
 """Plain version of kernel pair_raster_fused against the Pallas fused
 kernel in interpret mode, with and without the kernel's strip-span skip, on
 the pair stream the JAX package built (carried across by
-convert.pairs_from_numpy), and the property that makes the skip exact. The
-CUDA kernel itself is held against this plain version on the card by
-chip_smoke.py."""
+convert.pairs_from_numpy), and the visibility pass it shares with the
+unfused raster (the property that makes the skip exact is in
+test_torch_fused_span.py). The CUDA kernel itself is held against this
+plain version on the card by chip_smoke.py."""
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
 
-from zeldaengine_tpu.config import TEST_CONFIG as JCFG
-from zeldaengine_tpu.math.transforms import apply_mat4_h, apply_mat4_point
-from zeldaengine_tpu.ops import pbr as jpbr
 from zeldaengine_tpu.ops import rasterize_pallas as jp
-from zeldaengine_tpu.ops.rasterize import triangle_setup as j_triangle_setup
 from zeldaengine_tpu.passes import frame as jframe
-from zeldaengine_tpu.passes.view import build_view_state as j_view
-from zeldaengine_tpu.scene.demo import build_demo_scene as j_build
-from zeldaengine_tpu_torch import TEST_CONFIG
 from zeldaengine_tpu_torch.convert import (
     pairs_from_numpy, scene_from_numpy, setup_from_numpy, view_from_numpy)
 from zeldaengine_tpu_torch.math.transforms import (
@@ -28,26 +21,11 @@ from zeldaengine_tpu_torch.ops import rasterize_cuda as tp
 from zeldaengine_tpu_torch.passes import frame as tframe
 
 from _torch_compare import to_numpy_leaves
+from _torch_fused_state import H, W, fused_state
 
 torch.set_num_threads(1)
 
-H = W = 128
-
-
-@pytest.fixture(scope="module")
-def state():
-    cfg = JCFG
-    scene, meta, world_desc = j_build(cfg, grass=20, rocks=3)
-    view = j_view(world_desc, cfg, time=0.25, roll_light=0.1)
-    world = apply_mat4_point(view.model, scene.pair_pos)
-    n1 = apply_mat4_point(view.model, jpbr.normalize(scene.pair_nrm))
-    n_world = jnp.einsum("pij,pj->pi", scene.rot_table[scene.pair_rot], n1,
-                         precision="highest")
-    clip = apply_mat4_h(view.view_proj, world)
-    setup = j_triangle_setup(
-        clip[scene.tri_vtx], W, H, two_sided=scene.tri_two_sided,
-        valid_mask=scene.tri_valid & scene.tri_deferred)
-    return cfg, scene, view, world, n_world, setup, clip
+state = pytest.fixture(scope="module")(fused_state)
 
 
 def _run(state, need_uv, has_combo, tile_h, tile_w, span=False):
@@ -114,58 +92,6 @@ def test_plain_fused_matches_pallas_strip_skip(state, tile_h, tile_w):
     nothing beyond the file's tolerances."""
     _assert_fused_close(*_run(state, True, True, tile_h, tile_w, span=True),
                         True)
-
-
-@pytest.mark.parametrize("tile_h,tile_w,height,shadow", [
-    pytest.param(8, 128, 128, False, id="8-128-128"),
-    pytest.param(16, 32, 128, False, id="16-32-128"),
-    pytest.param(24, 32, 120, False, id="24-32-120"),
-    pytest.param(64, 32, 120, False, id="64-32-120"),
-    pytest.param(64, 32, 120, True, id="shadow-64-32-120")])
-def test_covered_pixels_lie_in_their_winners_strip_span(state, tile_h,
-                                                        tile_w, height,
-                                                        shadow):
-    """Every pixel the plain version covers lies inside the packed strip
-    span of its winning pair, on the pair stream the frame builds; the
-    frame pads 120 rows to 128 for 64-row tiles, and the span reaches the
-    padded rows too. This is what makes the kernels' skip exact.
-    ``shadow``: the shadow map's pairs (``_raster_depth``, a 120^2 map on
-    64x32 shadow tiles) and kernel ``pair_raster``'s wrapper."""
-    cfg, scene, view, world, n_world, _, clip = state
-    width = height if shadow else W
-    jsetup = j_triangle_setup(
-        clip[scene.tri_vtx], width, height, two_sided=scene.tri_two_sided,
-        valid_mask=scene.tri_valid & scene.tri_deferred)
-    setup = setup_from_numpy(to_numpy_leaves(jsetup), "cpu")
-    if shadow:
-        tcfg = TEST_CONFIG.replace(shadow_tile_h=tile_h, shadow_tile_w=tile_w)
-        _, pairs, _ = tframe._raster_depth(setup, height, tcfg)
-        ph = pw = -(-height // tile_h) * tile_h
-        y_row = 13
-        _, tid = tp.rasterize_pairs(pairs, ph, pw, tile_h=tile_h,
-                                    tile_w=tile_w, sub_rows=8, y_row=y_row)
-    else:
-        extra = jframe._fused_extra(scene, jsetup, world, n_world)
-        tcfg = TEST_CONFIG.replace(width=W, height=height, tile_h=tile_h,
-                                   tile_w=tile_w)
-        _, _, _, pairs, _ = tframe._raster_vis_fused(
-            setup, torch.from_numpy(np.array(extra)), height, W, tcfg)
-        ph, pw = -(-height // tile_h) * tile_h, W
-        y_row = 12 + extra.shape[1] + 1
-        _, tid, _ = tp.rasterize_pairs_fused(
-            pairs, ph, pw, tile_h=tile_h, tile_w=tile_w, sub_rows=8,
-            y_row=y_row)
-    span = torch.zeros(setup.edge.shape[0] + 1)  # + the dead row
-    span[pairs.pair_tri.long()] = pairs.records[:, y_row]
-    cov = tid >= 0
-    rows = torch.arange(ph)[:, None].expand(ph, pw)[cov].float()
-    v = span[tid[cov].long()]
-    ysub1 = torch.floor(v / 4096.0)
-    ysub0 = v - ysub1 * 4096.0
-    assert cov.float().mean() > 0.3
-    if ph > height:
-        assert cov[height:].any()
-    assert bool(((ysub0 * 8 <= rows) & (rows <= (ysub1 + 1) * 8 - 1)).all())
 
 
 def test_port_fused_extra_matches_jax(state):

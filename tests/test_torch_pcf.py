@@ -1,7 +1,8 @@
 """Plain version of kernel pcf_taps (the port of compute_pcf) against the
 JAX package's compute_pcf and against its Pallas PCF kernel in interpret
 mode. The CUDA kernel itself is held against this plain version on the
-card by chip_smoke.py."""
+card by chip_smoke.py. Its wrap of the tap indices is in
+test_torch_pcf_wrap.py and test_torch_pcf_wrap_wide.py."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -12,7 +13,7 @@ from zeldaengine_tpu.ops.pcf_vmem import compute_pcf_vmem as j_pcf_vmem
 from zeldaengine_tpu.ops.shadow import (
     compute_pcf as j_pcf, compute_shadow_coord as j_coord)
 from zeldaengine_tpu_torch.ops.pcf_cuda import (
-    compute_pcf_plain, compute_pcf_vmem, wrap_tap_indices)
+    compute_pcf_plain, compute_pcf_vmem)
 from zeldaengine_tpu_torch.ops.shadow import (
     _shadow_tap, compute_pcf, compute_shadow_coord)
 
@@ -114,26 +115,3 @@ def test_wrapper_refuses_cpu_tensors_for_the_cuda_backend():
     with pytest.raises(RuntimeError, match="card"):
         compute_pcf_vmem(sm, sc, backend="cuda")
     assert compute_pcf_vmem.launches == 0
-
-
-@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8, 1024])
-def test_division_free_wrap_equals_the_remainder(n):
-    """Kernel ``pcf_taps`` wraps only the first tap index of an axis with a
-    remainder and every further one from it (``wrap_tap_indices``): equal
-    to torch.remainder of every index, for maps narrower than the footprint
-    too, and for coordinates whose conversion to int32 saturates (the CPU
-    gives INT_MIN for both ends, so neighbouring taps can lie 2^32 apart)."""
-    rng = np.random.default_rng(n)
-    s = np.concatenate([
-        rng.uniform(-1e9, 1e9, 2000), rng.uniform(-1e9, 1e9, 2000) / n,
-        rng.uniform(-3.0, 3.0, 2000),
-        np.array([2147483520.0, 2147483648.0, -2147483648.0, 3e9, -3e9,
-                  1e12, -1e12]) / n]).astype(np.float32)
-    f = torch.from_numpy(s) * float(n)
-    for scale in (1.0, 1.5, 2.5):
-        for radius in (1, 2, 3):
-            o = torch.arange(-radius, radius + 1, dtype=torch.float32)
-            idx = torch.floor(f[:, None] + scale * o[None, :]).to(torch.int32)
-            want = torch.remainder(idx, n)
-            np.testing.assert_array_equal(wrap_tap_indices(idx, n).numpy(),
-                                          want.numpy())

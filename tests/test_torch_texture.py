@@ -1,7 +1,7 @@
 """The port's texture samplers held against the JAX package's on the same
 NumPy atlases: the mip-pair trilinear (one row fetch), the 2x2-packed and
-quad-packed trilinear, the cubemap at a per-pixel lod in the pair, quad
-and plain layouts, and the plain RGBA atlas. uv spans [-2, 3] (repeat
+quad-packed trilinear and the plain RGBA atlas (the cubemap is in
+test_torch_texture_cube.py). uv spans [-2, 3] (repeat
 addressing), lod spans [-1, mips + 1] (clamping). Every sampler is an
 indexing gather with the JAX package's operation order, so the results
 are held equal, bit for bit."""
@@ -14,36 +14,9 @@ import torch
 from zeldaengine_tpu.ops import texture as jt
 from zeldaengine_tpu_torch.ops import texture as tt
 
+from _torch_texture_inputs import N_PX, _images, _taps, _bf16, _eq
+
 torch.set_num_threads(1)
-
-N_PX = 4096
-
-
-def _images(seed, n, size, c):
-    return np.random.default_rng(seed).random((n, size, size, c)).astype(
-        np.float32)
-
-
-def _taps(seed, size, n_layers, shape=(N_PX,)):
-    """(layer, uv, lod) over the ranges the samplers must wrap and clamp;
-    a few lods sit exactly on integers."""
-    rng = np.random.default_rng(seed)
-    uv = rng.uniform(-2.0, 3.0, shape + (2,)).astype(np.float32)
-    lod = rng.uniform(-1.0, tt.mip_count(size) + 1.0, shape).astype(
-        np.float32)
-    lod[:64] = np.round(lod[:64])
-    layer = rng.integers(0, n_layers, shape).astype(np.int32)
-    return layer, uv, lod
-
-
-def _bf16(a):
-    """The same bf16 atlas for both packages."""
-    return jnp.asarray(a, jnp.bfloat16), torch.from_numpy(
-        tt.round_bf16(a)).to(torch.bfloat16)
-
-
-def _eq(got, want):
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("size,c", [(16, 4), (32, 3), (8, 8)])
@@ -90,35 +63,6 @@ def test_packed_and_quad_trilinear_match_jax(quad):
     got = tt.sample_trilinear_packed(ta, torch.from_numpy(layer),
                                      torch.from_numpy(uv),
                                      torch.from_numpy(lod), size, quad=quad)
-    _eq(got, want)
-
-
-@pytest.mark.parametrize("layout", ["pair", "quad", "plain"])
-def test_cubemap_lod_matches_jax(layout):
-    """textureLod(samplerCube): face selection, the half-texel clamp of the
-    lod's level, then the layout's trilinear; two cubemaps (12 layers)."""
-    size = 16
-    faces = _images(3, 12, size, 4)
-    atlas = {"pair": tt.build_mip_pair_atlas, "quad":
-             tt.build_quad_packed_atlas, "plain": tt.build_mip_atlas}[
-        layout](faces)
-    if layout == "plain":
-        ja, ta = jnp.asarray(atlas), torch.from_numpy(atlas)
-    else:
-        ja, ta = _bf16(atlas)
-    rng = np.random.default_rng(5)
-    d = rng.standard_normal((N_PX, 3)).astype(np.float32)
-    # The six axes exactly (ties of the face selection).
-    d[:6] = np.eye(3, dtype=np.float32).repeat(2, 0) * np.float32(
-        [1, -1, 1, -1, 1, -1])[:, None]
-    cube = rng.integers(0, 2, N_PX).astype(np.int32)
-    _, _, lod = _taps(9, size, 1)
-    quad = layout == "quad"
-    want = jt.sample_cubemap_lod(ja, jnp.asarray(cube), jnp.asarray(d),
-                                 jnp.asarray(lod), size, quad=quad)
-    got = tt.sample_cubemap_lod(ta, torch.from_numpy(cube),
-                                torch.from_numpy(d), torch.from_numpy(lod),
-                                size, quad=quad)
     _eq(got, want)
 
 

@@ -2,7 +2,8 @@
 renderer for one NVIDIA Hopper card.
 
 Same sub-package layout as the JAX package beside it (``math/ scene/ ops/
-passes/ utils/``), so each module's counterpart is found by path. Plain
+passes/ meshlet/ livelink/ parallel/ tools/ utils/``), so each module's
+counterpart is found by path. Plain
 tensor math is PyTorch; the rasterizer, the PCF filter and the sky tap are
 CUDA C++ kernels under ``csrc/``, built with nvcc at first use
 (``ops/_build.py``) and bound through ctypes.

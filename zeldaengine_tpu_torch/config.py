@@ -10,8 +10,7 @@ tensors instead.
 
 Every field and default of the JAX package's ``EngineConfig`` is kept so
 that a configuration written for one package reads the same in the
-other. Values whose path this package has not ported yet make
-``render_frame`` raise ``NotImplementedError``.
+other, and every value of it renders here.
 """
 
 from __future__ import annotations
@@ -159,9 +158,11 @@ class EngineConfig:
     # "window_roll" = the same over kernel-built window tables (all
     # exact); "half"/"half_nearest"/"half_wr" = half resolution + 2x
     # upsample (one tap quantum off along penumbra edges); "pallas" = the
-    # windowed kernel (taps clamp to a per-tile window: approximate).
-    # "packed_y4/8", "packed4/8/16", "window1" and "half_y4" are not
-    # ported yet.
+    # windowed kernel (taps clamp to a per-tile window: approximate);
+    # "packed_y4"/"packed_y8" (shadow rows packed 4 or 8 a table row),
+    # "packed4/8/16" (x bases fused 4-16 a row) and "window1" (one 2-D
+    # window row a pixel) = plain exact filters without a kernel, and
+    # "half_y4" = "half" over "packed_y4". Any other name raises.
     pcf_backend: str = "auto"
     pcf_window: int = 256  # windowed-backend shadow window (texels)
     # "vmem" backend window rows / unfit-block recompute cap of the JAX

@@ -36,6 +36,9 @@
 //   ties) and writes depth and triangle id: a split tile's result equals
 //   the one-block walk's bit for bit. Nothing is read back to the host,
 //   so the launch can be captured in a CUDA graph.
+// - Row bands (y0_tiles > 0, the multi-device path's bands): the buffers
+//   hold the band's rows, and pixel centres and the strip span test count
+//   viewport rows (TileCtx::y0), as the TPU kernel's y0_ref does.
 //
 // Arithmetic is written in the operation order of the plain PyTorch
 // version (ops/rasterize_cuda.py) and the file is compiled with
@@ -102,14 +105,15 @@ __global__ void __launch_bounds__(zk::kThreads, kMinBlocks<NPP>)
     const float* __restrict__ init_depth, float* __restrict__ depth,
     int* __restrict__ tid, void* __restrict__ keys, int width, int tile_h,
     int tile_w, int n_tx, int n_sx, int super_h, int super_w, int sub_rows,
-    int y_row, int n_parts, int min_chunks, int z_row, int eo_stride,
-    int* __restrict__ skipped) {
+    int y_row, int y0_tiles, int n_parts, int min_chunks, int z_row,
+    int eo_stride, int* __restrict__ skipped) {
   // Block b walks part b % n_parts of tile b / n_parts: the parts of a
   // crowded tile start together, early in the grid.
   const int p = blockIdx.x % n_parts;
   const zk::TileCtx c = zk::tile_context(starts, ends, sstarts, sends,
                                          gbounds, n_tx, n_sx, super_h,
-                                         super_w, blockIdx.x / n_parts);
+                                         super_w, blockIdx.x / n_parts,
+                                         y0_tiles, tile_h);
   const Seq s = zk::strip::make_seq(c);
   const Part part = part_of(s, n_parts, min_chunks, p);
   // Part 0 always runs: it stores a tile with no pairs.
@@ -155,7 +159,7 @@ __global__ void __launch_bounds__(zk::kThreads) merge_parts_kernel(
     int n_parts, int min_chunks) {
   const zk::TileCtx c = zk::tile_context(starts, ends, sstarts, sends,
                                          gbounds, n_tx, n_sx, super_h,
-                                         super_w, blockIdx.x);
+                                         super_w, blockIdx.x, 0, tile_h);
   if (!part_of(zk::strip::make_seq(c), n_parts, min_chunks, 0).split) return;
   for (int p = threadIdx.x; p < tile_h * tile_w; p += zk::kThreads) {
     const int g =
@@ -177,7 +181,10 @@ __global__ void __launch_bounds__(zk::kThreads) merge_parts_kernel(
 // rec_w a multiple of 4 (cp.async stages 16-byte pieces of each row).
 // init_depth may be null (clear value 1.0); tid may be null when
 // depth_only. y_row >= 0 names the packed strip span column (strips of
-// sub_rows rows). n_parts > 1 splits each tile's sequence into up to
+// sub_rows rows). y0_tiles >= 0: the buffers are the row band of viewport
+// tile rows [y0_tiles, y0_tiles + height / tile_h) (0: the whole frame),
+// and the pairs are binned for that band (build_pairs(y0_tiles=)).
+// n_parts > 1 splits each tile's sequence into up to
 // n_parts parts of at least min_chunks 64-pair chunks; keys is then a
 // scratch buffer of height * width 64-bit words, which this function fills
 // before the raster. z_row >= 0 (with y_row < 0 and eo_stride >= 1) turns
@@ -190,13 +197,14 @@ extern "C" int zk_pair_raster(
     const void* sstarts, const void* sends, const void* gbounds,
     const void* pair_tri, const void* init_depth, void* depth, void* tid,
     void* keys, int height, int width, int tile_h, int tile_w, int n_sx,
-    int super_h, int super_w, int sub_rows, int y_row, int n_parts,
-    int min_chunks, int depth_only, int z_row, int eo_stride, void* skipped,
-    void* stream) {
+    int super_h, int super_w, int sub_rows, int y_row, int y0_tiles,
+    int n_parts, int min_chunks, int depth_only, int z_row, int eo_stride,
+    void* skipped, void* stream) {
   const int n_tx = width / tile_w;
   const int n_tiles = n_tx * (height / tile_h);
   if (rec_w % 4 != 0 || ((size_t)records & 15) != 0 || y_row >= rec_w ||
-      (y_row >= 0 && sub_rows <= 0) || n_parts < 1 || min_chunks < 1 ||
+      (y_row >= 0 && sub_rows <= 0) || y0_tiles < 0 || n_parts < 1 ||
+      min_chunks < 1 ||
       (n_parts > 1 && keys == nullptr) || z_row >= rec_w ||
       (z_row >= 0 && eo_stride < 1) ||
       (long long)n_tiles * n_parts > INT_MAX)
@@ -215,7 +223,8 @@ extern "C" int zk_pair_raster(
       (const int*)sstarts, (const int*)sends, (const int*)gbounds,          \
       (const int*)pair_tri, (const float*)init_depth, (float*)depth,        \
       (int*)tid, keys, width, tile_h, tile_w, n_tx, n_sx, super_h, super_w, \
-      sub_rows, y_row, n_parts, min_chunks, z_row, eo_stride, (int*)skipped)
+      sub_rows, y_row, y0_tiles, n_parts, min_chunks, z_row, eo_stride,    \
+      (int*)skipped)
 #define ZK_LAUNCH_X(NPP, DO)           \
   {                                     \
     if (x1) ZK_LAUNCH_V(NPP, true, DO); \

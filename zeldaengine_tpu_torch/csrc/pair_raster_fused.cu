@@ -27,6 +27,8 @@
 // ~45-word record row per pixel that neighbouring pixels share through L2.
 // A warp's pixels of one k are 32 consecutive pixels of a row, so its
 // stores to each output plane are coalesced.
+// Row bands (y0_tiles > 0): as pair_raster.cu, the buffers hold the band's
+// rows and the pixel centres count viewport rows.
 #include "strip_walk.cuh"
 
 namespace {
@@ -50,11 +52,13 @@ __global__ void __launch_bounds__(zk::kThreads, kMinBlocks<NPP>)
     const float* __restrict__ init_depth, float* __restrict__ depth,
     int* __restrict__ tid, float* __restrict__ attrs, int height, int width,
     int tile_h, int tile_w, int n_tx, int n_sx, int super_h, int super_w,
-    int sub_rows, int y_row, float tex_size, int need_uv, int has_combo,
-    float combo_const, int z_row, int eo_stride, int* __restrict__ skipped) {
+    int sub_rows, int y_row, int y0_tiles, float tex_size, int need_uv,
+    int has_combo, float combo_const, int z_row, int eo_stride,
+    int* __restrict__ skipped) {
   const zk::TileCtx c = zk::tile_context(starts, ends, sstarts, sends,
                                          gbounds, n_tx, n_sx, super_h,
-                                         super_w, blockIdx.x);
+                                         super_w, blockIdx.x, y0_tiles,
+                                         tile_h);
   float px[NPP], py[NPP], best[NPP];
   int bid[NPP];
   zk::strip::pixel_setup<NPP>(c, tile_h, tile_w, width, init_depth, px, py,
@@ -151,7 +155,8 @@ __global__ void __launch_bounds__(zk::kThreads, kMinBlocks<NPP>)
 }  // namespace
 
 // As zk_pair_raster, plus attrs (24, height, width), the strip span
-// (sub_rows, y_row; y_row < 0: no span column) and the static elision flags
+// (sub_rows, y_row; y_row < 0: no span column), the row band (y0_tiles, as
+// zk_pair_raster's) and the static elision flags
 // of the record layout. records must be 16-byte aligned with rec_w a
 // multiple of 4 (cp.async stages 16-byte pieces of each row). z_row >= 0
 // (with y_row < 0 and eo_stride >= 1) turns the occlusion early-out on
@@ -162,11 +167,11 @@ extern "C" int zk_pair_raster_fused(
     const void* sstarts, const void* sends, const void* gbounds,
     const void* pair_tri, const void* init_depth, void* depth, void* tid,
     void* attrs, int height, int width, int tile_h, int tile_w, int n_sx,
-    int super_h, int super_w, int sub_rows, int y_row, int texture_size,
-    int need_uv, int has_combo, float combo_const, int z_row, int eo_stride,
-    void* skipped, void* stream) {
+    int super_h, int super_w, int sub_rows, int y_row, int y0_tiles,
+    int texture_size, int need_uv, int has_combo, float combo_const,
+    int z_row, int eo_stride, void* skipped, void* stream) {
   if (rec_w % 4 != 0 || ((size_t)records & 15) != 0 || y_row >= rec_w ||
-      (y_row >= 0 && sub_rows <= 0) || z_row >= rec_w ||
+      (y_row >= 0 && sub_rows <= 0) || y0_tiles < 0 || z_row >= rec_w ||
       (z_row >= 0 && eo_stride < 1))
     return (int)cudaErrorInvalidValue;
   const int n_tx = width / tile_w;
@@ -180,8 +185,8 @@ extern "C" int zk_pair_raster_fused(
       (const int*)sstarts, (const int*)sends, (const int*)gbounds,          \
       (const int*)pair_tri, (const float*)init_depth, (float*)depth,        \
       (int*)tid, (float*)attrs, height, width, tile_h, tile_w, n_tx, n_sx,  \
-      super_h, super_w, sub_rows, y_row, (float)texture_size, need_uv,      \
-      has_combo, combo_const, z_row, eo_stride, (int*)skipped)
+      super_h, super_w, sub_rows, y_row, y0_tiles, (float)texture_size,     \
+      need_uv, has_combo, combo_const, z_row, eo_stride, (int*)skipped)
 #define ZK_LAUNCH(NPP)                                                      \
   if (x1) ZK_LAUNCH_V(NPP, true);                                            \
   else ZK_LAUNCH_V(NPP, false)

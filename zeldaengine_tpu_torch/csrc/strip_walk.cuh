@@ -59,17 +59,22 @@ namespace zk {
 constexpr int kThreads = 256;
 
 struct TileCtx {
-  int tx, ty;        // tile coordinates
+  int tx, ty;        // tile coordinates inside the band
+  int y0;            // the band's first viewport row (0: the whole frame)
   int ranges[3][2];  // dense, supertile, global pair ranges [lo, hi)
 };
 
-// Tile t and its three pair ranges.
+// Tile t of a band whose first tile row is viewport tile row y0_tiles, and
+// its three pair ranges. The band's buffers hold its rows only: tile
+// coordinates and frame indices are band-local, pixel centres and the
+// strip spans viewport rows.
 __device__ __forceinline__ TileCtx tile_context(
     const int* __restrict__ starts, const int* __restrict__ ends,
     const int* __restrict__ sstarts, const int* __restrict__ sends,
     const int* __restrict__ gbounds, int n_tx, int n_sx, int super_h,
-    int super_w, int t) {
+    int super_w, int t, int y0_tiles, int tile_h) {
   TileCtx c;
+  c.y0 = y0_tiles * tile_h;
   c.ty = t / n_tx;
   c.tx = t % n_tx;
   const int st = (c.ty / super_h) * n_sx + (c.tx / super_w);
@@ -165,7 +170,8 @@ __device__ __forceinline__ void issue_chunk(Stage& st, const Seq& s,
   cp_async_commit();
 }
 
-// Absolute rows [r0, r1] of this warp's pixels; any = the warp owns one.
+// Viewport rows [r0, r1] of this warp's pixels (the rows the packed strip
+// spans count); any = the warp owns one.
 struct WarpRows {
   float r0, r1;
   bool any;
@@ -179,14 +185,14 @@ __device__ __forceinline__ WarpRows warp_rows(const TileCtx& c, int tile_h,
   const int last = min(first + 32 * NPP, tile_pixels) - 1;
   WarpRows r;
   r.any = first < tile_pixels;
-  r.r0 = (float)(c.ty * tile_h + first / tile_w);
-  r.r1 = (float)(c.ty * tile_h + max(last, first) / tile_w);
+  r.r0 = (float)(c.y0 + c.ty * tile_h + first / tile_w);
+  r.r1 = (float)(c.y0 + c.ty * tile_h + max(last, first) / tile_w);
   return r;
 }
 
 // Pixel k of this thread: linear tile pixel
-// p = warp * 32 * NPP + k * 32 + lane; its frame index, or -1 outside the
-// tile.
+// p = warp * 32 * NPP + k * 32 + lane; its index in the band's buffers, or
+// -1 outside the tile.
 template <int NPP>
 __device__ __forceinline__ int pixel_index(const TileCtx& c, int tile_h,
                                            int tile_w, int width, int k) {
@@ -195,8 +201,9 @@ __device__ __forceinline__ int pixel_index(const TileCtx& c, int tile_h,
   return (c.ty * tile_h + p / tile_w) * width + c.tx * tile_w + p % tile_w;
 }
 
-// Pixel centres and starting depths. With X1 (tile_w == 32) a lane's
-// pixels share one column, and only px[0] is used.
+// Pixel centres (viewport coordinates: the band's row offset added) and
+// starting depths. With X1 (tile_w == 32) a lane's pixels share one
+// column, and only px[0] is used.
 template <int NPP>
 __device__ __forceinline__ void pixel_setup(
     const TileCtx& c, int tile_h, int tile_w, int width,
@@ -207,7 +214,7 @@ __device__ __forceinline__ void pixel_setup(
     const int g = pixel_index<NPP>(c, tile_h, tile_w, width, k);
     if (g >= 0) {
       px[k] = (float)(g % width) + 0.5f;
-      py[k] = (float)(g / width) + 0.5f;
+      py[k] = (float)(g / width + c.y0) + 0.5f;
       best[k] = init_depth ? init_depth[g] : 1.0f;
     } else {
       px[k] = 0.0f;

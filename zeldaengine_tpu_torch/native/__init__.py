@@ -2,8 +2,8 @@
 
 ``zeldanative.cpp`` is the JAX package's native library, copied whole: the
 greedy meshlet clusterizer with its bounding spheres and backface cones
-(``ze_build_meshlets``, which Morton-sorts the triangles first) and the OBJ
-loader (``ze_load_obj``).
+(``ze_build_meshlets``, which Morton-sorts the triangles first), that sort
+alone (``ze_morton_sort_triangles``) and the OBJ loader (``ze_load_obj``).
 
 It is built with g++ at first use, with the JAX package's own command
 (``-O3 -march=native -shared -fPIC -std=c++17``), so that the bounds it
@@ -101,6 +101,9 @@ def load() -> ctypes.CDLL:
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_void_p, u32p, ctypes.POINTER(ctypes.c_uint8), i64p, i64p,
     ]
+    lib.ze_morton_sort_triangles.restype = None
+    lib.ze_morton_sort_triangles.argtypes = [
+        f32p, ctypes.c_int64, u32p, ctypes.c_int64, u32p]
     lib.ze_load_obj.restype = ctypes.c_int32
     lib.ze_load_obj.argtypes = [ctypes.c_char_p, ctypes.POINTER(_ZeObjData)]
     lib.ze_free_obj.restype = None
@@ -168,6 +171,24 @@ def build_meshlets_native(positions: np.ndarray, indices: np.ndarray,
     )
     return (recs[:n].copy(), mv[: mv_count.value].copy(),
             mt[: mt_count.value].copy())
+
+
+def morton_sort_triangles_native(positions: np.ndarray,
+                                 indices: np.ndarray) -> np.ndarray:
+    """The triangles of ``indices`` reordered by the Morton code of their
+    centroids (``ze_morton_sort_triangles``): (T, 3) uint32."""
+    lib = load()
+    pos = np.ascontiguousarray(positions, np.float32).reshape(-1, 3)
+    idx = _indices(indices)
+    if idx.size and int(idx.max()) >= pos.shape[0]:
+        raise ValueError("an index exceeds the vertex count")
+    out = np.zeros_like(idx)
+    lib.ze_morton_sort_triangles(
+        pos.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), pos.shape[0],
+        idx.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        idx.shape[0] // 3,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+    return out.reshape(-1, 3)
 
 
 def load_obj_native(path: str):

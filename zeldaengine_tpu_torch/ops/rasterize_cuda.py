@@ -527,15 +527,16 @@ def _tile_pair_list(pairs: PairedTriangles, n_ty: int, n_tx: int,
 
 
 def _candidates(pairs: PairedTriangles, tiles, pids, n_tx: int,
-                tile_h: int, tile_w: int, lx, ly):
+                tile_h: int, tile_w: int, lx, ly, y0: int = 0):
     """Depth of each (tile, pair) entry at each of the tile's pixels
     (lx, ly), +inf where the pair does not cover it, with the kernels'
-    arithmetic in their operation order: (cand (C, TP), gx, gy)."""
+    arithmetic in their operation order: (cand (C, TP), gx, gy), gx and gy
+    band-local; the pixel centres lie ``y0`` viewport rows lower."""
     r = pairs.records[pids][:, :12]  # (C, 12)
     gx = (tiles % n_tx)[:, None] * tile_w + lx[None, :]  # (C, TP)
     gy = (tiles // n_tx)[:, None] * tile_h + ly[None, :]
     px = gx.to(torch.float32) + 0.5
-    py = gy.to(torch.float32) + 0.5
+    py = (gy + y0).to(torch.float32) + 0.5
 
     def c(i):
         return r[:, i : i + 1]
@@ -553,7 +554,8 @@ def _candidates(pairs: PairedTriangles, tiles, pids, n_tx: int,
 def _plain_visibility(pairs: PairedTriangles, height: int, width: int,
                       init_depth, tile_h: int, tile_w: int,
                       want_id: bool = True, chunk_elems: int = 1 << 22,
-                      entries=None, sub_rows: int = 8, y_row: int = -1):
+                      entries=None, sub_rows: int = 8, y_row: int = -1,
+                      y0_tiles: int = 0):
     """(depth (H, W), winner pair id (H, W) int64 or None) by the kernel's
     rule: minimum depth; lowest pair id among minimum-depth candidates;
     ``init_depth`` wins ties with id -1. Candidates are evaluated with the
@@ -563,8 +565,11 @@ def _plain_visibility(pairs: PairedTriangles, height: int, width: int,
     walk tests (``strip_walk_hits``): the walk's skips are exact for every
     pixel inside a pair's bbox, but a sliver triangle whose edge values all
     lie within rounding of zero can pass the coverage test outside it, and
-    the kernels and this version must agree there too."""
+    the kernels and this version must agree there too. ``y0_tiles``: the
+    buffers are the band of viewport tile rows [y0_tiles, y0_tiles +
+    height / tile_h), as the kernels take it."""
     dev = pairs.records.device
+    y0 = int(y0_tiles) * tile_h
     assert height % tile_h == 0 and width % tile_w == 0, (
         height, width, tile_h, tile_w)
     n_ty, n_tx = height // tile_h, width // tile_w
@@ -578,7 +583,7 @@ def _plain_visibility(pairs: PairedTriangles, height: int, width: int,
     walk_hit = None
     if y_row >= 0:
         walk_hit = _walk_hits(pairs, tiles, pids, width, tile_h, tile_w,
-                              sub_rows, y_row)
+                              sub_rows, y_row, y0)
         warp = loc // (32 * _pixels_per_thread(tile_h, tile_w))
     if init_depth is None:
         init = torch.ones((height * width,), dtype=torch.float32, device=dev)
@@ -589,7 +594,7 @@ def _plain_visibility(pairs: PairedTriangles, height: int, width: int,
 
     def candidates(sl):
         cand, gx, gy = _candidates(pairs, tiles[sl], pids[sl], n_tx, tile_h,
-                                   tile_w, lx, ly)
+                                   tile_w, lx, ly, y0)
         if walk_hit is not None:
             cand = torch.where(walk_hit[sl][:, warp], cand,
                                torch.full_like(cand, inf))
@@ -651,7 +656,8 @@ def _early_out_row(pairs: PairedTriangles, early_out: bool, z_row: int,
 def early_out_walk(pairs: PairedTriangles, height: int, width: int,
                    tile_h: int, tile_w: int, z_row: int, eo_stride: int,
                    init_depth=None, n_parts: int = 1, min_chunks: int = 1,
-                   chunk: int = 64, chunk_elems: int = 1 << 22):
+                   chunk: int = 64, chunk_elems: int = 1 << 22,
+                   y0_tiles: int = 0):
     """The occlusion early-out of the strip walk (``csrc/strip_walk.cuh``)
     in PyTorch: which (tile, pair) entries of ``_tile_pair_list`` a block
     walks, and how many it skips.
@@ -664,8 +670,9 @@ def early_out_walk(pairs: PairedTriangles, height: int, width: int,
     its tile's pixels of min(acc, init) and, for each range with pairs in
     that chunk and not stopped yet, their largest z bucket (record column
     ``z_row``); a range whose bucket lies strictly above that maximum is
-    stopped, and its later pairs in the part are skipped. Returns (tiles,
-    pair ids, keep (N,) bool, skipped count as a Python int)."""
+    stopped, and its later pairs in the part are skipped. ``y0_tiles``: the
+    row band, as ``rasterize_pairs`` takes it. Returns (tiles, pair ids,
+    keep (N,) bool, skipped count as a Python int)."""
     dev = pairs.records.device
     i64 = torch.int64
     n_ty, n_tx = height // tile_h, width // tile_w
@@ -711,7 +718,7 @@ def early_out_walk(pairs: PairedTriangles, height: int, width: int,
         for s0 in range(0, act.shape[0], n_chunk):
             a = act[s0:s0 + n_chunk]
             cand, _, _ = _candidates(pairs, tiles[a], pids[a], n_tx, tile_h,
-                                     tile_w, lx, ly)
+                                     tile_w, lx, ly, int(y0_tiles) * tile_h)
             best.scatter_reduce_(
                 0, (block[a][:, None] * tp + loc[None, :]).reshape(-1),
                 cand.reshape(-1), "amin", include_self=True)
@@ -732,7 +739,8 @@ def rasterize_pairs_plain(pairs: PairedTriangles, height: int, width: int,
                           sub_rows: int = 8, y_row: int = -1,
                           early_out: bool = False, z_row: int = -1,
                           eo_stride: int = 4, eo_skipped=None,
-                          split_parts: Optional[int] = None):
+                          split_parts: Optional[int] = None,
+                          y0_tiles: int = 0):
     """Plain PyTorch version of ``rasterize_pairs`` (any device). With the
     early-out, the pairs the kernel's blocks skip (``early_out_walk``, the
     blocks of the split at ``split_parts``, by default ``SPLIT_PARTS`` as
@@ -746,14 +754,14 @@ def rasterize_pairs_plain(pairs: PairedTriangles, height: int, width: int,
             pairs, height, width, tile_h, tile_w, z_eo, eo_stride,
             init_depth, n_parts=parts,
             min_chunks=SPLIT_MIN_CHUNKS if parts > 1 else 1,
-            chunk=SPLIT_CHUNK)
+            chunk=SPLIT_CHUNK, y0_tiles=y0_tiles)
         entries = (tiles[keep], pids[keep])
         if eo_skipped is not None:
             eo_skipped += n_skip
     depth, pid = _plain_visibility(pairs, height, width, init_depth, tile_h,
                                    tile_w, want_id=not depth_only,
                                    entries=entries, sub_rows=sub_rows,
-                                   y_row=y_row)
+                                   y_row=y_row, y0_tiles=y0_tiles)
     if depth_only:
         return depth
     return depth, _map_tid(pairs, pid)
@@ -816,7 +824,8 @@ def rasterize_pairs_split_plain(pairs: PairedTriangles, height: int,
                                 split_parts: int = SPLIT_PARTS,
                                 split_min_chunks: int = SPLIT_MIN_CHUNKS,
                                 chunk: int = SPLIT_CHUNK,
-                                sub_rows: int = 8, y_row: int = -1):
+                                sub_rows: int = 8, y_row: int = -1,
+                                y0_tiles: int = 0):
     """Kernel ``pair_raster``'s split in PyTorch: the plain walk over each
     part of each tile's sequence (``split_parts_of``), merged as the kernel
     merges it. A tile of one part keeps that part's result. Split tiles take
@@ -845,7 +854,7 @@ def rasterize_pairs_split_plain(pairs: PairedTriangles, height: int,
         depth_p, pid_p = _plain_visibility(
             pairs, height, width, init, tile_h, tile_w,
             want_id=not depth_only, entries=(tiles[sel], pids[sel]),
-            sub_rows=sub_rows, y_row=y_row)
+            sub_rows=sub_rows, y_row=y_row, y0_tiles=y0_tiles)
         if first is None:
             first = (depth_p, pid_p)
         if depth_only:
@@ -888,32 +897,46 @@ def rasterize_pairs_fused_plain(pairs: PairedTriangles, height: int,
                                 combo_const: float = 0.0,
                                 sub_rows: int = 8, y_row: int = -1,
                                 early_out: bool = False, z_row: int = -1,
-                                eo_stride: int = 4, eo_skipped=None):
+                                eo_stride: int = 4, eo_skipped=None,
+                                y0_tiles: int = 0):
     """Plain PyTorch version of ``rasterize_pairs_fused`` (any device):
     the plain visibility pass, one gather of the winner's record row per
     pixel, and the kernel's epilogue in the kernel's operation order. With
     the early-out, the pairs the kernel skips (``early_out_walk``, one
     block a tile) are left out and their count added to ``eo_skipped``."""
-    dev = pairs.records.device
     entries = None
     z_eo = _early_out_row(pairs, early_out, z_row, eo_stride, y_row)
     if z_eo >= 0:
         tiles, pids, keep, n_skip = early_out_walk(
             pairs, height, width, tile_h, tile_w, z_eo, eo_stride,
-            init_depth, chunk=SPLIT_CHUNK)
+            init_depth, chunk=SPLIT_CHUNK, y0_tiles=y0_tiles)
         entries = (tiles[keep], pids[keep])
         if eo_skipped is not None:
             eo_skipped += n_skip
     depth, pid = _plain_visibility(pairs, height, width, init_depth, tile_h,
                                    tile_w, entries=entries,
-                                   sub_rows=sub_rows, y_row=y_row)
-    covered = pid >= 0
-    rec = pairs.records[pid.clamp_min(0)]  # (H, W, rec_w)
+                                   sub_rows=sub_rows, y_row=y_row,
+                                   y0_tiles=y0_tiles)
+    planes = fused_planes_plain(
+        pairs.records[pid.clamp_min(0)], pid >= 0, int(y0_tiles) * tile_h,
+        texture_size, need_uv, has_combo, combo_const)
+    return depth, _map_tid(pairs, pid), planes
+
+
+def fused_planes_plain(rec: torch.Tensor, covered: torch.Tensor, y0: int = 0,
+                       texture_size: int = 256, need_uv: bool = True,
+                       has_combo: bool = True, combo_const: float = 0.0):
+    """The fused kernel's epilogue in PyTorch, in its operation order: the
+    (ATTR_CH, H, W) planes from each pixel's winner record row ``rec``
+    (H, W, rec_w) where ``covered``, the pixel centres ``y0`` viewport rows
+    below the buffer's first row."""
+    height, width = covered.shape
+    dev = rec.device
     rec = torch.where(covered[..., None], rec, torch.zeros_like(rec))
     gy, gx = torch.meshgrid(torch.arange(height, device=dev),
                             torch.arange(width, device=dev), indexing="ij")
     px = gx.to(torch.float32) + 0.5
-    py = gy.to(torch.float32) + 0.5
+    py = (gy + y0).to(torch.float32) + 0.5
 
     def A(c):
         return rec[..., c]
@@ -974,7 +997,7 @@ def rasterize_pairs_fused_plain(pairs: PairedTriangles, height: int,
         planes[5 + c] = interp(off_col + c, b0, b1, b2)  # vertex color
         planes[8 + c] = interp(off_pos + c, b0, b1, b2)  # world pos
         planes[11 + c] = interp(off_nrm + c, b0, b1, b2)  # world normal
-    return depth, _map_tid(pairs, pid), torch.stack(planes, dim=0)
+    return torch.stack(planes, dim=0)
 
 
 def _pixels_per_thread(tile_h: int, tile_w: int) -> int:
@@ -986,7 +1009,7 @@ def _pixels_per_thread(tile_h: int, tile_w: int) -> int:
 
 def strip_walk_hits(pairs: PairedTriangles, height: int, width: int,
                     tile_h: int, tile_w: int, sub_rows: int = 8,
-                    y_row: int = -1):
+                    y_row: int = -1, y0_tiles: int = 0):
     """Which pairs the strip walk of kernels ``pair_raster`` and
     ``pair_raster_fused`` tests, per warp: (tiles,
     pair ids, hits) with one row per (tile, pair) of the tile's dense,
@@ -998,16 +1021,21 @@ def strip_walk_hits(pairs: PairedTriangles, height: int, width: int,
     misses the warp's rows, or one of whose edge functions is below
     -1e-5 * (|a| x1 + |b| y1 + |c|) at the corner of the warp's pixel-centre
     rectangle (all tile columns x the warp's rows) that its signs pick: the
-    kernel's test in the kernel's fp32 operation order."""
+    kernel's test in the kernel's fp32 operation order. In a row band
+    (``y0_tiles``) the warp's rows, which the span and the rectangle are
+    tested against, are viewport rows."""
     tiles, pids = _tile_pair_list(pairs, height // tile_h, width // tile_w,
                                   tile_h, tile_w)
     return tiles, pids, _walk_hits(pairs, tiles, pids, width, tile_h,
-                                   tile_w, sub_rows, y_row)
+                                   tile_w, sub_rows, y_row,
+                                   int(y0_tiles) * tile_h)
 
 
 def _walk_hits(pairs: PairedTriangles, tiles, pids, width: int, tile_h: int,
-               tile_w: int, sub_rows: int, y_row: int) -> torch.Tensor:
-    """The (N, 8) warp hits of ``strip_walk_hits`` for given entries."""
+               tile_w: int, sub_rows: int, y_row: int,
+               y0: int = 0) -> torch.Tensor:
+    """The (N, 8) warp hits of ``strip_walk_hits`` for given entries, the
+    band starting ``y0`` viewport rows down."""
     n_tx = width // tile_w
     dev = pairs.records.device
     f32 = torch.float32
@@ -1018,7 +1046,7 @@ def _walk_hits(pairs: PairedTriangles, tiles, pids, width: int, tile_h: int,
     last = torch.clamp(first + run, max=tile_px) - 1
     if y_row < 0:
         return owns[None, :].expand(tiles.shape[0], -1)
-    ty = (tiles // n_tx)[:, None] * tile_h
+    ty = (tiles // n_tx)[:, None] * tile_h + y0
     r0 = (ty + (first // tile_w)[None, :]).to(f32)
     r1 = (ty + (torch.maximum(last, first) // tile_w)[None, :]).to(f32)
     rec = pairs.records[pids]
@@ -1042,14 +1070,14 @@ def _walk_hits(pairs: PairedTriangles, tiles, pids, width: int, tile_h: int,
 
 def strip_walk_tests(pairs: PairedTriangles, height: int, width: int,
                      tile_h: int, tile_w: int, sub_rows: int = 8,
-                     y_row: int = -1) -> torch.Tensor:
+                     y_row: int = -1, y0_tiles: int = 0) -> torch.Tensor:
     """(pixel, pair) tests the strip walk (kernels ``pair_raster``,
     ``pair_raster_fused``) makes on this pair stream, per tile and warp: an
     (n_tiles, 8) int64 tensor. A warp tests
     all 32*NPP of its pixel slots against each pair it does not skip
     (``strip_walk_hits``)."""
     tiles, _, hit = strip_walk_hits(pairs, height, width, tile_h, tile_w,
-                                    sub_rows, y_row)
+                                    sub_rows, y_row, y0_tiles)
     per = torch.zeros(((height // tile_h) * (width // tile_w), 8),
                       dtype=torch.int64, device=pairs.records.device)
     per.index_add_(0, tiles, hit.to(torch.int64))
@@ -1130,6 +1158,14 @@ def _check_span(pairs: PairedTriangles, sub_rows: int, y_row: int):
         raise ValueError(f"sub_rows must be positive, got {sub_rows}")
 
 
+def _check_y0(y0_tiles) -> int:
+    """The row band's first tile row as a host int (>= 0)."""
+    y0 = int(y0_tiles)
+    if y0 < 0:
+        raise ValueError(f"y0_tiles must be >= 0, got {y0}")
+    return y0
+
+
 def _check_skipped(eo_skipped: Optional[torch.Tensor], dev):
     """The early-out's skip counter: None, or an int32 tensor of one
     element on ``dev``, to which the kernel adds."""
@@ -1160,6 +1196,7 @@ def rasterize_pairs(
     z_row: int = -1,
     eo_stride: int = 4,
     eo_skipped: Optional[torch.Tensor] = None,
+    y0_tiles: int = 0,
     backend: str = "auto",
 ):
     """Rasterize an exact pair stream to (depth, triangle-id) buffers.
@@ -1178,16 +1215,20 @@ def rasterize_pairs(
     range's next z bucket, tested after every ``eo_stride`` chunks of 64
     pairs (``early_out_walk``); the pair visits skipped are added to
     ``eo_skipped``, an int32 tensor of one element, when one is given.
+    ``y0_tiles`` > 0 rasterizes a row band: the ``height`` rows from
+    viewport row ``y0_tiles * tile_h`` into band-sized buffers, from pairs
+    binned for that band (``build_pairs(y0_tiles=)``).
     Tensors on the card go to kernel ``pair_raster``; CPU tensors (or
     ``backend="torch"``) to ``rasterize_pairs_plain``, which tests the
     pairs the walk tests.
     """
     _check_span(pairs, sub_rows, y_row)
+    y0_tiles = _check_y0(y0_tiles)
     if not _use_kernel(pairs.records, backend):
         return rasterize_pairs_plain(
             pairs, height, width, init_depth, tile_h, tile_w, depth_only,
             sub_rows, y_row, early_out, z_row, eo_stride, eo_skipped,
-            split_parts=SPLIT_PARTS)
+            split_parts=SPLIT_PARTS, y0_tiles=y0_tiles)
     z_eo = _early_out_row(pairs, early_out, z_row, eo_stride, y_row)
     ptrs, geom = _check_pairs(pairs, height, width, tile_h, tile_w, 12,
                               init_depth)
@@ -1208,7 +1249,7 @@ def rasterize_pairs(
             None if tid is None else tid.data_ptr(),
             None if keys is None else keys.data_ptr(),
             height, width, tile_h, tile_w, *geom, int(sub_rows), int(y_row),
-            n_parts, SPLIT_MIN_CHUNKS, int(depth_only), z_eo,
+            y0_tiles, n_parts, SPLIT_MIN_CHUNKS, int(depth_only), z_eo,
             int(eo_stride), skip_ptr,
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, "pair_raster")
@@ -1236,6 +1277,7 @@ def rasterize_pairs_fused(
     z_row: int = -1,
     eo_stride: int = 4,
     eo_skipped: Optional[torch.Tensor] = None,
+    y0_tiles: int = 0,
     backend: str = "auto",
 ):
     """Rasterize + interpolate in one kernel.
@@ -1249,7 +1291,8 @@ def rasterize_pairs_fused(
     then skips, per warp, the pairs whose span misses the warp's rows or
     one of whose edges excludes the warp's pixels (``strip_walk_hits``).
     ``early_out``, ``z_row``, ``eo_stride``, ``eo_skipped``: the occlusion
-    early-out of ``rasterize_pairs``, one block a tile.
+    early-out of ``rasterize_pairs``, one block a tile. ``y0_tiles``: the
+    row band of ``rasterize_pairs``.
     Tensors on the card go to kernel ``pair_raster_fused``; CPU tensors (or
     ``backend="torch"``) to ``rasterize_pairs_fused_plain``, which tests
     the pairs the walk tests.
@@ -1258,11 +1301,12 @@ def rasterize_pairs_fused(
     assert pairs.records.shape[1] >= min_w, (
         pairs.records.shape, need_uv, has_combo)
     _check_span(pairs, sub_rows, y_row)
+    y0_tiles = _check_y0(y0_tiles)
     if not _use_kernel(pairs.records, backend):
         return rasterize_pairs_fused_plain(
             pairs, height, width, init_depth, tile_h, tile_w, texture_size,
             need_uv, has_combo, combo_const, sub_rows, y_row, early_out,
-            z_row, eo_stride, eo_skipped)
+            z_row, eo_stride, eo_skipped, y0_tiles=y0_tiles)
     z_eo = _early_out_row(pairs, early_out, z_row, eo_stride, y_row)
     ptrs, geom = _check_pairs(pairs, height, width, tile_h, tile_w, min_w,
                               init_depth)
@@ -1277,7 +1321,7 @@ def rasterize_pairs_fused(
         code = _build.load().zk_pair_raster_fused(
             *ptrs, depth.data_ptr(), tid.data_ptr(), attrs.data_ptr(),
             height, width, tile_h, tile_w, *geom, int(sub_rows), int(y_row),
-            int(texture_size), int(need_uv), int(has_combo),
+            y0_tiles, int(texture_size), int(need_uv), int(has_combo),
             float(combo_const), z_eo, int(eo_stride), skip_ptr,
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, "pair_raster_fused")

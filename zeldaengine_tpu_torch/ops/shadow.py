@@ -9,9 +9,14 @@ CPU tensors. The kernel that serves the frame on the card lives in
 The opt-in backends of ``EngineConfig.pcf_backend`` follow: the row-table
 filters (``compute_pcf_packed``, exact tap for tap), the same over the
 tables of kernels ``pcf_window_table`` / ``pcf_window2d_table``
-(``compute_pcf_packed_roll`` / ``compute_pcf_window_roll``, exact) and the
+(``compute_pcf_packed_roll`` / ``compute_pcf_window_roll``, exact), the
 half-resolution filter with a 2x upsample (``compute_pcf_half``,
-approximate by one tap quantum along penumbra edges).
+approximate by one tap quantum along penumbra edges), and three more exact
+table layouts that the JAX package wrote as plain array code, without a
+TPU kernel, and that stay plain here: shadow rows packed per table row
+(``compute_pcf_packed_y``), x bases fused per table row
+(``compute_pcf_packed4``) and one full 2-D window row per pixel
+(``compute_pcf_window1``).
 """
 
 from __future__ import annotations
@@ -293,16 +298,16 @@ def compute_pcf_half(shadowmap: torch.Tensor, shadow_coord: torch.Tensor,
     tent, ``"nearest"``). Off the full-resolution factor by one tap
     quantum along penumbra edges. ``inner="window_roll"`` takes the taps
     from the window table of kernel ``pcf_window2d_table`` (when the
-    map's width is a multiple of 128). Odd shapes take the full-resolution
+    map's width is a multiple of 128), ``inner="packed_y"`` from
+    ``compute_pcf_packed_y`` with 4 rows a table row (when the map's
+    height is a multiple of 4). Odd shapes take the full-resolution
     ``compute_pcf_packed`` (the JAX package's own rule)."""
     h, w = shadow_coord.shape[:2]
     if h % 2 or w % 2 or shadow_coord.ndim != 3:
         return compute_pcf_packed(shadowmap, shadow_coord, radius=radius,
                                   scale=scale, bias=bias)
-    if inner not in ("packed", "window_roll"):
-        raise NotImplementedError(
-            f"compute_pcf_half(inner={inner!r}) is not ported yet "
-            "(ROADMAP.md A9: ops/shadow.py variants)")
+    if inner not in ("packed", "window_roll", "packed_y"):
+        raise ValueError(f"compute_pcf_half: unknown inner {inner!r}")
     q = shadow_coord.reshape(h // 2, 2, w // 2, 2, 4)
     # The 2x2 mean, summed in the reference's reduction order.
     sc = (((q[:, 0, :, 0] + q[:, 0, :, 1]) + q[:, 1, :, 0])
@@ -310,6 +315,9 @@ def compute_pcf_half(shadowmap: torch.Tensor, shadow_coord: torch.Tensor,
     if inner == "window_roll" and shadowmap.shape[-1] % 128 == 0:
         f = compute_pcf_window_roll(shadowmap, sc, radius=radius,
                                     scale=scale, bias=bias, backend=backend)
+    elif inner == "packed_y" and shadowmap.shape[-2] % 4 == 0:
+        f = compute_pcf_packed_y(shadowmap, sc, radius=radius, scale=scale,
+                                 bias=bias, ygroup=4)
     else:
         f = compute_pcf_packed(shadowmap, sc, radius=radius, scale=scale,
                                bias=bias)
@@ -327,3 +335,195 @@ def compute_pcf_half(shadowmap: torch.Tensor, shadow_coord: torch.Tensor,
 
     f = up_axis0(f)  # (h, w/2)
     return up_axis0(f.T).T.contiguous()  # (h, w)
+
+
+def _wrap_x(shadowmap: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """The map wrap-padded in x: (D_y, D_x + hi - lo), column j holding
+    column (j + lo) mod D_x."""
+    cols = torch.remainder(
+        torch.arange(shadowmap.shape[-1] + hi - lo, device=shadowmap.device)
+        + lo, shadowmap.shape[-1])
+    return shadowmap[:, cols]
+
+
+def _x_taps(row, frx, radius: int, scale: float, lo: int):
+    """The x taps of one tap row from its window ``row`` (..., >= w):
+    floor(fx + s) - floor(fx) is floor(s) or floor(s) + 1, split at
+    ceil(s) - s of the fractional part ``frx``."""
+    for ox in range(-radius, radius + 1):
+        so = scale * ox
+        c0 = int(math.floor(so)) - lo
+        if so == math.floor(so):
+            yield row[..., c0]
+        else:
+            thr = math.ceil(so) - so
+            yield torch.where(frx >= thr, row[..., c0 + 1], row[..., c0])
+
+
+def _clamped(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """An index tensor clamped into [0, n), as the JAX package's gathers
+    clamp theirs (only non-finite coordinates reach outside)."""
+    return idx.long().clamp(0, n - 1)
+
+
+def compute_pcf_packed_y(shadowmap: torch.Tensor,
+                         shadow_coord: torch.Tensor, radius: int = 2,
+                         scale: float = 1.5, bias: float = 0.0,
+                         ygroup: int = 4):
+    """``compute_pcf_packed`` with ``ygroup`` consecutive shadow ROWS packed
+    per table row; exact tap for tap.
+
+    Row (q * wp + x) of the (nq * wp, ygroup * w) table holds the x windows
+    of shadow rows ygroup*q .. ygroup*q + ygroup - 1 at x: channel
+    (r * w + dx) is sm[ygroup*q + r, (x + lo + dx) mod D]. The (2r+1) tap
+    rows of a pixel lie in span // ygroup + 2 consecutive pack rows from
+    qmin = floor(floor(fy - scale * r) / ygroup), fetched once each; each
+    tap row then selects its pack row and its sub-row (float arithmetic on
+    exact integers, wrapped at pack granularity, as the JAX package)."""
+    lo, hi = _window_span(radius, scale)
+    w_win = hi - lo + 1
+    dim_y, dim_x = shadowmap.shape[-2], shadowmap.shape[-1]
+    if dim_y % ygroup:
+        raise ValueError(f"map height {dim_y} is not a multiple of "
+                         f"ygroup {ygroup}")
+    nq = dim_y // ygroup
+    wp = dim_x + w_win - 1
+    flat = _wrap_x(shadowmap, lo, hi).reshape(-1)
+    flat = torch.cat([flat, flat[: ygroup * wp]])  # wrap in y
+    chans = [
+        flat[r * wp + dx : r * wp + dx + nq * ygroup * wp]
+        .reshape(nq, ygroup * wp)[:, :wp].reshape(-1)
+        for r in range(ygroup) for dx in range(w_win)
+    ]
+    table = torch.stack(chans, 1)  # (nq * wp, ygroup * w_win)
+
+    in_range, z_cmp, fx, fy = _coords(shadow_coord, dim_y, dim_x, bias)
+    xb = torch.floor(fx)
+    xm = torch.remainder(xb, float(dim_x))
+    frx = fx - xb
+    qmin = torch.floor(torch.floor(fy + scale * (-radius)) / ygroup)
+    n_q = (hi - lo) // ygroup + 2
+    rows = [table[_clamped(torch.remainder(qmin + k, float(nq)) * wp + xm,
+                           table.shape[0])] for k in range(n_q)]
+    one = torch.ones_like(z_cmp)
+    shadowed = one * SHADOW_IN_FACTOR
+    total = torch.zeros_like(z_cmp)
+    count = 0
+    for oy in range(-radius, radius + 1):
+        iy = torch.floor(fy + scale * oy)
+        qt = torch.floor(iy / ygroup)
+        k_rel = (qt - qmin)[..., None]
+        r = (iy - qt * ygroup)[..., None]
+        rowsel = rows[0]
+        for kk in range(1, n_q):
+            rowsel = torch.where(k_rel == kk, rows[kk], rowsel)
+        win = rowsel[..., 0:w_win]
+        for rr in range(1, ygroup):
+            win = torch.where(r == rr,
+                              rowsel[..., rr * w_win:(rr + 1) * w_win], win)
+        for dist in _x_taps(win, frx, radius, scale, lo):
+            occluded = in_range & (dist < z_cmp)
+            total = total + torch.where(occluded, shadowed, one)
+            count += 1
+    return _tap_mean(total, count)
+
+
+def compute_pcf_packed4(shadowmap: torch.Tensor, shadow_coord: torch.Tensor,
+                        radius: int = 2, scale: float = 1.5,
+                        bias: float = 0.0, group: int = 4):
+    """``compute_pcf_packed`` with ``group`` x-adjacent bases fused per
+    table row; exact tap for tap.
+
+    Row q of the table holds g[group*q .. group*q + w + group - 2], g the
+    x-wrap-padded map flattened row-major and w the x window; the window of
+    base texel (y, x) starts at g[y * wp + x], channel (f0 mod group) of row
+    f0 // group, and log2(group) binary selects shift it into place."""
+    if group not in (2, 4, 8, 16):
+        raise ValueError(f"group must be 2, 4, 8 or 16, got {group}")
+    lo, hi = _window_span(radius, scale)
+    w_win = hi - lo + 1
+    n_ch = w_win + group - 1
+    dim_y, dim_x = shadowmap.shape[-2], shadowmap.shape[-1]
+    wp = dim_x + w_win - 1
+    g = _wrap_x(shadowmap, lo, hi).reshape(-1)
+    nq = (dim_y * wp + group - 1) // group
+    n_rows = -(-n_ch // group) + 1
+    g2 = torch.nn.functional.pad(
+        g, (0, (nq + n_rows) * group - g.shape[0])).reshape(nq + n_rows,
+                                                            group)
+    table = torch.cat([g2[k : nq + k] for k in range(n_rows)], 1)[:, :n_ch]
+
+    in_range, z_cmp, fx, fy = _coords(shadow_coord, dim_y, dim_x, bias)
+    xm = torch.remainder(torch.floor(fx).to(torch.int32), dim_x)
+    frx = fx - torch.floor(fx)
+    one = torch.ones_like(z_cmp)
+    shadowed = one * SHADOW_IN_FACTOR
+    total = torch.zeros_like(z_cmp)
+    count = 0
+    for oy in range(-radius, radius + 1):
+        iy = torch.remainder(torch.floor(fy + scale * oy).to(torch.int32),
+                             dim_y)
+        f0 = iy * wp + xm
+        row = table[_clamped(torch.div(f0, group, rounding_mode="floor"),
+                             nq)]
+        m = torch.remainder(f0, group)
+        shift = group >> 1
+        while shift:
+            keep = row.shape[-1] - shift
+            row = torch.where(((m & shift) != 0)[..., None],
+                              row[..., shift : shift + keep],
+                              row[..., :keep])
+            shift >>= 1
+        for dist in _x_taps(row[..., :w_win], frx, radius, scale, lo):
+            occluded = in_range & (dist < z_cmp)
+            total = total + torch.where(occluded, shadowed, one)
+            count += 1
+    return _tap_mean(total, count)
+
+
+def compute_pcf_window1(shadowmap: torch.Tensor, shadow_coord: torch.Tensor,
+                        radius: int = 2, scale: float = 1.5,
+                        bias: float = 0.0):
+    """ComputePCF with ONE row fetch per pixel from a full 2-D window
+    table: row (y * wp + x) holds sm[(y + lo + dy) mod D, (x + lo + dx) mod
+    D] for the w x w window (w = 7 at radius 2, scale 1.5), channel
+    dy * w + dx. Each tap resolves from the fetched row with at most a
+    2x2 select. Exact tap for tap."""
+    lo, hi = _window_span(radius, scale)
+    w_win = hi - lo + 1
+    dim_y, dim_x = shadowmap.shape[-2], shadowmap.shape[-1]
+    rows_p = torch.remainder(
+        torch.arange(dim_y + w_win - 1, device=shadowmap.device) + lo, dim_y)
+    wp = dim_x + w_win - 1
+    flat = _wrap_x(shadowmap, lo, hi)[rows_p].reshape(-1)
+    span = (dim_y - 1) * wp + dim_x
+    table = torch.stack([flat[dy * wp + dx : dy * wp + dx + span]
+                         for dy in range(w_win) for dx in range(w_win)], -1)
+
+    in_range, z_cmp, fx, fy = _coords(shadow_coord, dim_y, dim_x, bias)
+    xb = torch.floor(fx)
+    yb = torch.floor(fy)
+    xm = torch.remainder(xb.to(torch.int32), dim_x)
+    ym = torch.remainder(yb.to(torch.int32), dim_y)
+    row = table[(ym * wp + xm).long()]  # (..., w * w): the one fetch
+    frx = fx - xb
+    fry = fy - yb
+    one = torch.ones_like(z_cmp)
+    shadowed = one * SHADOW_IN_FACTOR
+    total = torch.zeros_like(z_cmp)
+    count = 0
+    for oy in range(-radius, radius + 1):
+        so_y = scale * oy
+        cy = int(math.floor(so_y)) - lo
+        if so_y == math.floor(so_y):
+            win = row[..., cy * w_win:(cy + 1) * w_win]
+        else:
+            thr_y = math.ceil(so_y) - so_y
+            win = torch.where((fry >= thr_y)[..., None],
+                              row[..., (cy + 1) * w_win:(cy + 2) * w_win],
+                              row[..., cy * w_win:(cy + 1) * w_win])
+        for dist in _x_taps(win, frx, radius, scale, lo):
+            occluded = in_range & (dist < z_cmp)
+            total = total + torch.where(occluded, shadowed, one)
+            count += 1
+    return _tap_mean(total, count)

@@ -542,45 +542,80 @@ def build_quad_pair_atlas_host(images, bf16: bool = True) -> np.ndarray:
         build_quad_pair_atlas_np(np.asarray(images, np.float32)), bf16)
 
 
-def build_quad_pair_atlas_device(images: torch.Tensor,
-                                 out_dtype=torch.bfloat16) -> torch.Tensor:
-    """``build_quad_pair_atlas_np`` on the device the images lie on:
-    the same box means (each level the mean of its four parents, summed
-    in the NumPy builder's order) and the same neighbour groups."""
+def _mip_levels_device(images: torch.Tensor) -> list:
+    """The box-mean mip chain of (N, S, S, C) images on their device: each
+    level the mean of its four parents, summed in the NumPy builders'
+    order (np.mean over axes (2, 4))."""
     img = images.to(torch.float32)
     n, s, s2, c = img.shape
     assert s == s2 and (s & (s - 1)) == 0
-    dev = img.device
     levels = [img]
     size = s
     while size > 1:
         size //= 2
         lv = levels[-1].reshape(n, size, 2, size, 2, c)
-        # np.mean over axes (2, 4): the four parents summed in order,
-        # divided by 4.
         levels.append((((lv[:, :, 0, :, 0] + lv[:, :, 0, :, 1])
                         + lv[:, :, 1, :, 0]) + lv[:, :, 1, :, 1]) / 4.0)
+    return levels
+
+
+def _neighbours_device(level: torch.Tensor) -> list:
+    """A level's texel and its +x, +y, +x+y neighbours (edge-clamped)."""
+    size = level.shape[1]
+    i = torch.arange(size, device=level.device)
+    ip = torch.clamp_max(i + 1, size - 1)
+    return [level, level[:, :, ip], level[:, ip, :], level[:, ip][:, :, ip]]
+
+
+def build_mip_pair_atlas_device(images: torch.Tensor,
+                                out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``build_mip_pair_atlas`` on the device the images lie on: the same
+    box means and the same 13 neighbour groups, (N, S, 2S, 13C) in
+    ``out_dtype``."""
+    levels = _mip_levels_device(images)
+    n, s, _, c = levels[0].shape
+    dev = levels[0].device
     atlas = torch.zeros((n, s, 2 * s, 13 * c), dtype=torch.float32,
                         device=dev)
     for lv, level in enumerate(levels):
         size = level.shape[1]
         nxt = levels[min(lv + 1, len(levels) - 1)]
         sn = nxt.shape[1]
-        i = torch.arange(size, device=dev)
-        ip = torch.clamp_max(i + 1, size - 1)
-        groups = [level, level[:, :, ip], level[:, ip, :],
-                  level[:, ip][:, :, ip]]
+        half = torch.div(torch.arange(size, device=dev), 2,
+                         rounding_mode="floor")
+        groups = _neighbours_device(level)
         for dy in range(3):
-            gy = torch.clamp(torch.div(i, 2, rounding_mode="floor") - 1 + dy,
-                             0, sn - 1)
+            gy = torch.clamp(half - 1 + dy, 0, sn - 1)
             for dx in range(3):
-                gx = torch.clamp(
-                    torch.div(i, 2, rounding_mode="floor") - 1 + dx, 0,
-                    sn - 1)
+                gx = torch.clamp(half - 1 + dx, 0, sn - 1)
                 groups.append(nxt[:, gy][:, :, gx])
         off = mip_offset_x(lv, s)
         atlas[:, :size, off : off + size] = torch.cat(groups, dim=-1)
-    return atlas.reshape(n, s, s // 2, 52 * c).to(out_dtype)
+    return atlas.to(out_dtype)
+
+
+def build_quad_packed_atlas_device(images: torch.Tensor,
+                                   out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``build_quad_packed_atlas`` on the device the images lie on:
+    (N, S, S/2, 16C) in ``out_dtype``."""
+    levels = _mip_levels_device(images)
+    n, s, _, c = levels[0].shape
+    packed = torch.zeros((n, s, 2 * s, 4 * c), dtype=torch.float32,
+                         device=levels[0].device)
+    for lv, level in enumerate(levels):
+        size = level.shape[1]
+        off = mip_offset_x(lv, s)
+        packed[:, :size, off : off + size] = torch.cat(
+            _neighbours_device(level), dim=-1)
+    return packed.reshape(n, s, s // 2, 16 * c).to(out_dtype)
+
+
+def build_quad_pair_atlas_device(images: torch.Tensor,
+                                 out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``build_quad_pair_atlas_np`` on the device the images lie on."""
+    atlas = build_mip_pair_atlas_device(images, torch.float32)
+    n, s, w2, c13 = atlas.shape
+    return atlas.reshape(n, s, w2 // 4, 4 * c13).to(out_dtype)
 
 
 def pair_row_context(layer, uv, lod, base: int):

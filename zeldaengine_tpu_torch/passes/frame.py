@@ -35,9 +35,12 @@ fetch, ``ops/envtap.py``), the half-resolution reflection tap
 (``config.reflection_half``), aligned pair bins (``config.pair_align``),
 the rasterizers' occlusion early-out (``config.raster_early_out``) and the
 diagnostic ablations (``config.ablate``, each a substring test as in the
-JAX package). Row bands and the PCF variants without a kernel raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item; nothing is
-silently served by another path.
+JAX package). ``render_rows`` also renders a row band of the frame
+(``y0``, ``rows``, ``full_frame=False``; the shadow map as a band of its
+own rows, gathered by the caller), the multi-device path of
+``parallel/tiles.py``: K1/K2 rasterize the tile rows that hold the band
+(``y0_tiles``) and the band is cropped out of them. Nothing is silently
+served by another path: an unknown backend name raises.
 
 Every op is issued on the current CUDA stream in order: the stream is the
 dependency graph.
@@ -64,7 +67,10 @@ from zeldaengine_tpu_torch.ops.pcf_cuda import compute_pcf_vmem
 from zeldaengine_tpu_torch.ops.pcf_window import compute_pcf_pallas
 from zeldaengine_tpu_torch.ops.envtap import sample_env_merged
 from zeldaengine_tpu_torch.ops.rasterize import (
-    _pixel_grid, interpolation_coeffs, triangle_setup)
+    _pixel_grid,
+    interpolation_coeffs,
+    triangle_setup,
+)
 from zeldaengine_tpu_torch.ops.rasterize_cuda import (
     build_pairs,
     compact_setup,
@@ -78,7 +84,10 @@ from zeldaengine_tpu_torch.ops.shadow import (
     compute_pcf,
     compute_pcf_half,
     compute_pcf_packed,
+    compute_pcf_packed4,
     compute_pcf_packed_roll,
+    compute_pcf_packed_y,
+    compute_pcf_window1,
     compute_pcf_window_roll,
     compute_shadow_coord,
 )
@@ -95,25 +104,8 @@ from zeldaengine_tpu_torch.scene.scenebuild import GpuScene, SceneMeta
 _RASTER_BACKENDS = ("auto", "cuda", "torch")
 _PCF_BACKENDS = ("auto", "vmem", "exact", "packed", "packed_b",
                  "packed_roll", "window_roll", "half", "half_nearest",
-                 "half_wr", "pallas")
-
-
-def unported_reasons(scene: GpuScene, view, meta: SceneMeta,
-                     config: EngineConfig, full_frame: bool = True) -> list:
-    """Every reason this configuration is outside the ported slice, each
-    naming the ``ROADMAP.md`` item that will bring it."""
-    why = []
-
-    def no(cond, what, item):
-        if cond:
-            why.append(f"{what} is not ported yet (ROADMAP.md {item})")
-
-    no(not full_frame, "row bands (full_frame=False)",
-       "A8: parallel/tiles.py")
-    no(config.pcf_backend not in _PCF_BACKENDS,
-       f"pcf_backend={config.pcf_backend!r} (a PCF variant without a "
-       "kernel)", "A9: ops/shadow.py variants")
-    return why
+                 "half_wr", "half_y4", "pallas", "packed_y4", "packed_y8",
+                 "packed4", "packed8", "packed16", "window1")
 
 
 def point_light_route(view, config: EngineConfig):
@@ -136,9 +128,10 @@ def point_light_route(view, config: EngineConfig):
     return None
 
 
-def cull_lights(view, config: EngineConfig, route, attrs):
+def cull_lights(view, config: EngineConfig, route, attrs, y0: int = 0):
     """The point lights of one pass culled against its visible surface
-    (``attrs.world_pos`` / ``covered``) for ``route``: (tiled_points,
+    (``attrs.world_pos`` / ``covered``, whose rows are those of the row
+    band from viewport row ``y0``) for ``route``: (tiled_points,
     pallas_points, light drops), Nones where the route takes no cull."""
     if route is None:
         return None, None, None
@@ -148,8 +141,8 @@ def cull_lights(view, config: EngineConfig, route, attrs):
         tile_h, tile_w = config.light_tile_h, config.light_tile_w
     tile_idx, tile_cnt, drops = cull_point_lights_tiled(
         view.point_lights, int(view.lights_count[1]), view, config.width,
-        config.height, tile_h, tile_w, config.max_tile_lights,
-        vp_h=config.height, world_pos=attrs.world_pos,
+        attrs.world_pos.shape[0], tile_h, tile_w, config.max_tile_lights,
+        y0=y0, vp_h=config.height, world_pos=attrs.world_pos,
         covered=attrs.covered)
     if route == "kernel":
         return None, (tile_idx, tile_cnt, tile_h, config.raster), drops
@@ -158,6 +151,29 @@ def cull_lights(view, config: EngineConfig, route, attrs):
 
 def _pad_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
+
+
+def _band_tiles(y0: int, height: int, tile_h: int):
+    """The whole tile rows that hold pixel rows [y0, y0 + height): (first
+    tile row, the rows they span, row y0's offset in them). The pair
+    rasterizers render that span (``y0_tiles``) and the caller crops the
+    band out of it, so a band at any row, of any height, goes through
+    the kernels; the JAX package's frame sends such a band to its jnp
+    raster instead (``passes/frame.py::_use_pallas``). The full frame is
+    the span from row 0, padded to whole tiles."""
+    off = y0 % tile_h
+    return y0 // tile_h, _pad_up(off + height, tile_h), off
+
+
+def _band_mask_setup(setup, y0: int, rows_px: int):
+    """Restrict a TriangleSetup to triangles whose bbox intersects pixel
+    rows [y0, y0 + rows_px): with ``config.compact_tris`` set, a band's
+    compaction and binning then track the band's triangle count.
+    ``build_pairs`` applies the same band test to its keys, so this only
+    tightens ``valid`` earlier."""
+    b = setup.bbox
+    band = (b[:, 3] > float(y0)) & (b[:, 1] < float(y0) + rows_px)
+    return setup._replace(valid=setup.valid & band)
 
 
 def _maybe_compact(setup, extra, cap: Optional[int],
@@ -241,23 +257,24 @@ def _early_out_kw(config: EngineConfig, z_row: int) -> dict:
                 eo_stride=config.early_out_stride)
 
 
-def _raster_vis(setup, height, width, config: EngineConfig, init_depth=None):
+def _raster_vis(setup, height, width, config: EngineConfig, init_depth=None,
+                y0: int = 0):
     """Visibility raster with triangle ids (kernel ``pair_raster``, depth
     and ids) + tile padding: returns (depth, tid, the pair stream, live
     triangles the compaction cap dropped). As ``_raster_vis_fused``
     without the attribute payload; ``init_depth`` (H, W) is padded with
-    the far plane."""
-    ph = _pad_up(height, config.tile_h)
+    the far plane. A band starts at viewport row ``y0`` (``_band_tiles``)."""
+    y0_tiles, ph, off = _band_tiles(y0, height, config.tile_h)
     pw = _pad_up(width, max(config.tile_w, 128))
     orig_t = setup.edge.shape[0]
     setup, _, cidx, covf = _maybe_compact(setup, None, config.compact_tris,
                                           config)
     has_z = 1 if config.raster_zsort else 0
     ysr = config.sub_rows if config.raster_ysort else None
-    if ysr and ph > height:
-        setup = _span_padded_rows(setup, height, ph)
+    if ysr and y0 - off + ph > config.height:
+        setup = _span_padded_rows(setup, config.height, y0 - off + ph)
     pairs = build_pairs(setup, pw, ph, config.tile_h, config.tile_w,
-                        expand=config.pair_expand,
+                        expand=config.pair_expand, y0_tiles=y0_tiles,
                         max_pairs=config.max_pairs,
                         sort_z=config.raster_zsort,
                         align=config.pair_align,
@@ -268,18 +285,20 @@ def _raster_vis(setup, height, width, config: EngineConfig, init_depth=None):
     if cidx is not None:
         pairs = remap_pair_tri(pairs, cidx, orig_t)
     if init_depth is not None and (ph != height or pw != width):
-        init_depth = F.pad(init_depth, (0, pw - width, 0, ph - height),
+        init_depth = F.pad(init_depth,
+                           (0, pw - width, off, ph - off - height),
                            value=1.0)
     depth, tid = rasterize_pairs(
         pairs, ph, pw, init_depth=init_depth, tile_h=config.tile_h,
         tile_w=config.tile_w, sub_rows=config.sub_rows,
-        y_row=(12 + has_z) if ysr else -1, backend=config.raster,
-        **_early_out_kw(config, 12 if has_z else -1))
-    return depth[:height, :width], tid[:height, :width], pairs, covf
+        y_row=(12 + has_z) if ysr else -1, y0_tiles=y0_tiles,
+        backend=config.raster, **_early_out_kw(config, 12 if has_z else -1))
+    rows = slice(off, off + height)
+    return depth[rows, :width], tid[rows, :width], pairs, covf
 
 
 def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
-                      meta=None, init_depth=None):
+                      meta=None, init_depth=None, y0: int = 0):
     """Fused visibility raster + attribute interpolation: returns
     (depth, tid, attr planes (ATTR_CH, H, W), the pair stream, live
     triangles the compaction cap dropped). The frame is padded to whole
@@ -287,11 +306,12 @@ def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
     ``init_depth`` (H, W) is padded with the far plane. ``extra`` is the
     payload, or a callable that builds it from the compacted original ids
     (None without compaction), so that it covers the cap rows only. The
-    pair stream's ``pair_tri`` holds original triangle ids."""
+    pair stream's ``pair_tri`` holds original triangle ids. A band starts
+    at viewport row ``y0`` (``_band_tiles``)."""
     need_uv, need_combo, combo_const = (
         _fused_flags(meta) if meta is not None else (True, True, 0.0))
     n_extra = fused_extra_width(need_uv, need_combo)
-    ph = _pad_up(height, config.tile_h)
+    y0_tiles, ph, off = _band_tiles(y0, height, config.tile_h)
     pw = _pad_up(width, max(config.tile_w, 128))
     orig_t = setup.edge.shape[0]
     # Liveness is tested on the unpadded bbox, before the span extension.
@@ -305,10 +325,10 @@ def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
     assert extra.shape[1] == n_extra, (extra.shape, n_extra)
     has_z = 1 if config.raster_zsort else 0
     ysr = config.sub_rows if config.raster_ysort else None
-    if ysr and ph > height:
-        setup = _span_padded_rows(setup, height, ph)
+    if ysr and y0 - off + ph > config.height:
+        setup = _span_padded_rows(setup, config.height, y0 - off + ph)
     pairs = build_pairs(setup, pw, ph, config.tile_h, config.tile_w,
-                        expand=config.pair_expand,
+                        expand=config.pair_expand, y0_tiles=y0_tiles,
                         extra=extra, max_pairs=config.max_pairs,
                         sort_z=config.raster_zsort,
                         align=config.pair_align,
@@ -320,17 +340,19 @@ def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
         pairs = remap_pair_tri(pairs, cidx, orig_t)
     kw = dict(tile_h=config.tile_h, tile_w=config.tile_w,
               sub_rows=config.sub_rows, texture_size=config.texture_size,
-              y_row=(12 + n_extra + has_z) if ysr else -1,
+              y_row=(12 + n_extra + has_z) if ysr else -1, y0_tiles=y0_tiles,
               need_uv=need_uv, has_combo=need_combo,
               combo_const=combo_const,
               **_early_out_kw(config, (12 + n_extra) if has_z else -1))
     if init_depth is not None and (ph != height or pw != width):
-        init_depth = F.pad(init_depth, (0, pw - width, 0, ph - height),
+        init_depth = F.pad(init_depth,
+                           (0, pw - width, off, ph - off - height),
                            value=1.0)
     depth, tid, planes = rasterize_pairs_fused(
         pairs, ph, pw, init_depth=init_depth, backend=config.raster, **kw)
-    return (depth[:height, :width], tid[:height, :width],
-            planes[:, :height, :width], pairs, covf)
+    rows = slice(off, off + height)
+    return (depth[rows, :width], tid[rows, :width],
+            planes[:, rows, :width], pairs, covf)
 
 
 def _apply_wireframe(attrs: SurfaceAttributes, depth, tid,
@@ -348,7 +370,8 @@ def _apply_wireframe(attrs: SurfaceAttributes, depth, tid,
     return attrs, depth, tid
 
 
-def _raster_depth(setup, dim, config: EngineConfig):
+def _raster_depth(setup, dim, config: EngineConfig, y0: int = 0,
+                  rows: Optional[int] = None):
     """The shadow map: depth-only pair raster at shadowmap resolution,
     padded to whole shadow tiles (the span of a triangle reaching the map's
     bottom edge is extended over the padded rows, as in
@@ -356,19 +379,21 @@ def _raster_depth(setup, dim, config: EngineConfig):
     live casters the compaction cap dropped). The casters are compacted to
     their own cap (``config.compact_tris_shadow``): they are not the
     camera-culled set. The pass keeps no ids, so ``pair_tri`` stays in
-    compacted rows, as in the JAX package."""
+    compacted rows, as in the JAX package. ``y0`` / ``rows``: the band of
+    map rows [y0, y0 + rows) (``_band_tiles``)."""
     s_th = config.shadow_tile_h or config.tile_h
     s_tw = config.shadow_tile_w or config.tile_w
-    ph = _pad_up(dim, s_th)
+    height = dim if rows is None else rows
+    y0_tiles, ph, off = _band_tiles(y0, height, s_th)
     pw = _pad_up(dim, s_tw)
     setup, _, _, covf = _maybe_compact(setup, None,
                                        config.compact_tris_shadow, config)
     has_z = 1 if config.raster_zsort else 0
     ysr = config.sub_rows if config.raster_ysort else None
-    if ysr and ph > dim:
-        setup = _span_padded_rows(setup, dim, ph)
+    if ysr and y0 - off + ph > dim:
+        setup = _span_padded_rows(setup, dim, y0 - off + ph)
     pairs = build_pairs(setup, pw, ph, s_th, s_tw,
-                        expand=config.pair_expand_shadow,
+                        expand=config.pair_expand_shadow, y0_tiles=y0_tiles,
                         max_pairs=config.max_pairs_shadow,
                         sort_z=config.raster_zsort,
                         align=config.pair_align,
@@ -378,9 +403,9 @@ def _raster_depth(setup, dim, config: EngineConfig):
                         center_cull=config.subpixel_cull)
     kw = dict(tile_h=s_th, tile_w=s_tw, sub_rows=config.sub_rows,
               depth_only=True, y_row=(12 + has_z) if ysr else -1,
-              **_early_out_kw(config, 12 if has_z else -1))
+              y0_tiles=y0_tiles, **_early_out_kw(config, 12 if has_z else -1))
     depth = rasterize_pairs(pairs, ph, pw, backend=config.raster, **kw)
-    return depth[:dim, :dim], pairs, covf
+    return depth[off:off + height, :dim], pairs, covf
 
 
 def _shadow_factor(shadowmap, world_pos, view, config: EngineConfig,
@@ -389,11 +414,15 @@ def _shadow_factor(shadowmap, world_pos, view, config: EngineConfig,
     "vmem" the tap kernel; "packed" / "packed_b", "packed_roll",
     "window_roll" exact row- or window-table filters (the last two over
     the tables of the window-table kernels, on maps whose width is a
-    multiple of 128); "half*" half resolution + upsample; "pallas" the
-    windowed kernel (approximate by design); "exact" and every fallback
-    the plain 25-gather filter. Ablations (diagnostics): "nopcf" a factor
-    of ones, "pcfcoords" the coordinates without the filter, "pcfbuild"
-    the "packed" filter without its table build."""
+    multiple of 128); "packed_y4" / "packed_y8" (maps whose size is a
+    multiple of 8), "packed4/8/16" and "window1" the exact plain table
+    filters the JAX package has no kernel for; "half*" half resolution +
+    upsample; "pallas" the windowed kernel (approximate by design);
+    "exact" and every fallback the plain 25-gather filter. The shape
+    conditions and the order are the JAX package's. Ablations
+    (diagnostics): "nopcf" a factor of ones, "pcfcoords" the coordinates
+    without the filter, "pcfbuild" the "packed" filter without its table
+    build."""
     if "nopcf" in config.ablate:
         return torch.ones(world_pos.shape[:-1], dtype=torch.float32,
                           device=world_pos.device)
@@ -404,12 +433,23 @@ def _shadow_factor(shadowmap, world_pos, view, config: EngineConfig,
               bias=config.shadow_bias)
     backend = config.pcf_backend
     dim_ok = config.shadowmap_dim % 128 == 0
-    if backend in ("half", "half_nearest", "half_wr") and sc.ndim == 3:
+    if backend in ("packed_y4", "packed_y8") \
+            and config.shadowmap_dim % 8 == 0:
+        return compute_pcf_packed_y(shadowmap, sc, **kw,
+                                    ygroup=int(backend[len("packed_y"):]))
+    if backend in ("packed4", "packed8", "packed16"):
+        return compute_pcf_packed4(shadowmap, sc, **kw,
+                                   group=int(backend[len("packed"):]))
+    if backend in ("half", "half_nearest", "half_wr", "half_y4") \
+            and sc.ndim == 3:
         return compute_pcf_half(
             shadowmap, sc, **kw,
             upsample="nearest" if backend == "half_nearest" else "linear",
-            inner="window_roll" if backend == "half_wr" else "packed",
+            inner={"half_wr": "window_roll",
+                   "half_y4": "packed_y"}.get(backend, "packed"),
             backend=config.raster)
+    if backend == "window1":
+        return compute_pcf_window1(shadowmap, sc, **kw)
     if backend == "window_roll" and dim_ok:
         return compute_pcf_window_roll(shadowmap, sc, **kw,
                                        backend=config.raster)
@@ -553,10 +593,13 @@ def _gbuffer_vis(gbuf: GBuffer, final, view, config: EngineConfig,
 
 def resolve_lighting(gbuf: GBuffer, shadowmap, scene: GpuScene, view,
                      config: EngineConfig, tiled_points=None,
-                     pallas_points=None, env_fetch=None):
+                     pallas_points=None, env_fetch=None,
+                     enable_vis: bool = True):
     """BaseLighting.frag main(): unpack GBuffer, light, debug switch.
     Returns (color (H, W, 3), shadow factor (H, W)). ``env_fetch``: the
-    merged environment tap (``_env_fetch``). Ablations (diagnostics):
+    merged environment tap (``_env_fetch``). ``enable_vis=False`` (a row
+    band: the contact sheet samples other rows) shows the lit frame in
+    debug view 9 instead of the GBufferVis sheet. Ablations (diagnostics):
     "nolight" replaces the shading by base colour x shadow factor (the
     merged tap still runs, so that the sky and background rows flow),
     "noswitch" returns the lit frame whatever the debug view."""
@@ -609,8 +652,9 @@ def resolve_lighting(gbuf: GBuffer, shadowmap, scene: GpuScene, view,
     )
     color = _debug_switch(
         view.debug_view, final, attrs, shadow_factor, lit["reflection"],
-        case9=lambda: _gbuffer_vis(gbuf, final, view, config,
-                                   scene.cube_atlas, sf_vis()),
+        case9=(lambda: _gbuffer_vis(gbuf, final, view, config,
+                                    scene.cube_atlas, sf_vis()))
+        if enable_vis else None,
         shadow_factor_vis=sf_vis)
     return color, shadow_factor
 
@@ -647,7 +691,7 @@ def _mat_vec(m, v):
     return torch.sum(m * v[..., None, :], dim=-1)
 
 
-def _sky_ray(scene, view, height, width, config: EngineConfig):
+def _sky_ray(scene, view, height, width, config: EngineConfig, y0: int = 0):
     """Closed-form skydome ray intersection: per-pixel ray vs the dome
     sphere. Returns (uv (H, W, 2), sky_depth (H, W), hit (H, W) - in
     front and within [0, 1] depth).
@@ -657,9 +701,10 @@ def _sky_ray(scene, view, height, width, config: EngineConfig):
     and gathering interpolated UVs, intersect the camera ray with the
     sphere analytically and derive the equirect UV from the hit
     direction - the exact infinite-tessellation limit of the mesh path
-    (same UV convention as make_sphere)."""
+    (same UV convention as make_sphere). The rows are those of the band
+    from viewport row ``y0``."""
     vp_h = config.height
-    px, py = _pixel_grid(height, width, device=view.view_proj.device)
+    px, py = _pixel_grid(height, width, y0=y0, device=view.view_proj.device)
     nx = px / width * 2.0 - 1.0
     ny = py / vp_h * 2.0 - 1.0
     inv_vp = torch.linalg.inv(view.view_proj)
@@ -709,9 +754,9 @@ def _sky_ray(scene, view, height, width, config: EngineConfig):
 
 
 def _skydome_analytic(scene, view, depth, color, height, width,
-                      config: EngineConfig):
+                      config: EngineConfig, y0: int = 0):
     """Analytic skydome pass (ray + one sky tap + compose)."""
-    uv, sky_depth, hit = _sky_ray(scene, view, height, width, config)
+    uv, sky_depth, hit = _sky_ray(scene, view, height, width, config, y0)
     sky_mask = hit & (sky_depth < depth)
     args = (scene.sky_planes, uv.contiguous(), sky_mask,
             config.background_size)
@@ -723,23 +768,23 @@ def _skydome_analytic(scene, view, depth, color, height, width,
 
 
 def _skydome_mesh(scene, view, depth, color, height, width,
-                  config: EngineConfig):
+                  config: EngineConfig, y0: int = 0):
     """The skydome as rasterized geometry (the reference's own path: the
     dome mesh, ZeldaEngine.cpp:3682-3691): its triangles, two-sided,
     through kernel ``pair_raster`` with ids and the frame's depth as the
     initial depth (LESS_OR_EQUAL against it), then the winner's
     interpolated uv and one mip-0 tap of the equirect. Returns (color,
     depth, the dome's pair stream, live triangles the compaction cap
-    dropped)."""
+    dropped). ``y0``: the row band of ``_raster_vis``."""
     sky_world = apply_mat4_point(view.model, scene.sky_pos)
     sky_clip = apply_mat4_h(view.view_proj, sky_world)
     sky_tri = scene.sky_tri.long()
     setup_sky = triangle_setup(sky_clip[sky_tri], width, config.height,
                                two_sided=True)
     depth_sky, tid_sky, pairs, covf = _raster_vis(
-        setup_sky, height, width, config, init_depth=depth)
+        setup_sky, height, width, config, init_depth=depth, y0=y0)
     sky_mask = tid_sky >= 0
-    bary, _ = interpolation_coeffs(setup_sky, tid_sky, height, width)
+    bary, _ = interpolation_coeffs(setup_sky, tid_sky, height, width, y0=y0)
     corner_uv = scene.sky_uv[sky_tri[torch.clamp_min(tid_sky, 0).long()]]
     uv = (bary[..., 0:1] * corner_uv[..., 0, :]
           + bary[..., 1:2] * corner_uv[..., 1, :]
@@ -752,22 +797,27 @@ def _skydome_mesh(scene, view, depth, color, height, width,
     return color, depth, pairs, covf
 
 
-def _screen_uv(height, width, config: EngineConfig, device):
-    """The background rect's uv: pixel centres over the viewport."""
-    yy = (torch.arange(height, dtype=torch.float32, device=device)[:, None]
-          + 0.5) / config.height
+def _screen_uv(height, width, config: EngineConfig, device, y0: int = 0):
+    """The background rect's uv: pixel centres over the viewport, the rows
+    those of the band from viewport row ``y0``."""
+    yy = torch.arange(height, dtype=torch.float32, device=device)[:, None] \
+        + 0.5
+    if y0:  # (rows + 0.5) + y0, as the JAX package sums them
+        yy = yy + y0
+    yy = yy / config.height
     xx = (torch.arange(width, dtype=torch.float32, device=device)[None, :]
           + 0.5) / width
     return torch.stack([xx.broadcast_to(height, width),
                         yy.broadcast_to(height, width)], -1)
 
 
-def _background(scene, depth, color, height, width, config: EngineConfig):
+def _background(scene, depth, color, height, width, config: EngineConfig,
+                y0: int = 0):
     """The background pass: a full-screen rect at z = 1 under
     LESS_OR_EQUAL (ZeldaEngine.cpp:3693-3699), one mip-0 tap of the
     background image per pixel the frame left at the far plane (kernel
     ``bilinear_tap`` on ``scene.bg_planes``)."""
-    uv = _screen_uv(height, width, config, depth.device)
+    uv = _screen_uv(height, width, config, depth.device, y0)
     bg_mask = depth >= 1.0
     tap, _ovf = sample_base_window(scene.bg_planes, uv, bg_mask,
                                    config.background_size,
@@ -795,6 +845,56 @@ def _env_fetch(scene, meta, config: EngineConfig, covered, sky_uv,
     return env_fetch
 
 
+def _shadow_setup(scene, view, meta: SceneMeta, config: EngineConfig, world,
+                  tri_vtx, no_meshlet=None):
+    """The shadow casters' TriangleSetup at shadow-map resolution
+    (two-sided: the Shadow pipelines disable culling), from the world
+    positions of the pairs. CAMERA culling must NOT apply here - geometry
+    behind the camera still casts shadows. The LIGHT frustum is a
+    different matter: meshlets outside it cannot write the map (exact),
+    and closed-mesh scenes can opt into the light-apex cone test
+    (``shadow_cone_cull``). ``no_meshlet``: the triangles outside every
+    meshlet, when the caller has them."""
+    clip_sh = apply_mat4_h(view.shadow_space, world)
+    sh_valid = scene.tri_valid
+    if meta.has_meshlets:
+        vis_sh = meshlet_cull(
+            scene.meshlet_records,
+            mat4_product(view.shadow_space, view.model),
+            view.dir_lights[0, 0, :3], model=view.model,
+            cone=config.shadow_cone_cull)
+        if no_meshlet is None:
+            no_meshlet = scene.tri_meshlet < 0
+        sh_valid = sh_valid & (expand_meshlet_mask(
+            vis_sh, torch.clamp_min(scene.tri_meshlet, 0)) | no_meshlet)
+    return triangle_setup(
+        clip_sh[tri_vtx],
+        config.shadowmap_dim,
+        config.shadowmap_dim,
+        two_sided=True,
+        valid_mask=sh_valid,
+        depth_bias=(config.shadow_bias_constant, config.shadow_bias_slope),
+    )
+
+
+@torch.no_grad()
+def render_shadow_band(scene: GpuScene, view, meta: SceneMeta,
+                       config: EngineConfig, sy0: int, s_rows: int):
+    """Rows [sy0, sy0 + s_rows) of the frame's shadow map (s_rows, D): the
+    vertex stage of the pair positions, the casters' setup and the
+    depth-only raster of the band (kernel ``pair_raster`` with
+    ``y0_tiles``). What
+    ``render_rows(shadow_rows=(sy0, s_rows, gather_fn))`` hands to
+    ``gather_fn``; the multi-device path gathers the bands itself."""
+    world = apply_mat4_point(view.model, scene.pair_pos)
+    setup_sh = _shadow_setup(scene, view, meta, config, world,
+                             scene.tri_vtx.long())
+    band, _pairs, _covf = _raster_depth(
+        _band_mask_setup(setup_sh, int(sy0), int(s_rows)),
+        config.shadowmap_dim, config, y0=int(sy0), rows=int(s_rows))
+    return band
+
+
 def render_frame(
     scene: GpuScene,
     view,
@@ -814,29 +914,45 @@ def render_rows(
     config: EngineConfig,
     y0=0,
     rows: Optional[int] = None,
+    shadow_rows=None,
     full_frame: bool = True,
     shadowmap_override=None,
 ):
-    """The frame. Row bands (``y0``/``rows``/``full_frame=False``, the
-    multi-device path of the JAX package) are not ported: only the full
-    frame renders. ``shadowmap_override`` takes an already-computed
-    (D, D) shadow map instead of rasterizing one."""
+    """Row-band renderer: rasterize and shade pixel rows [y0, y0 + rows)
+    of the viewport (the whole frame by default).
+
+    The multi-device path (``parallel/tiles.py``) renders one band per
+    device. ``full_frame=False`` marks a band: each pass keeps only the
+    triangles whose bbox meets its rows (``_band_mask_setup``), K1/K2
+    rasterize the tile rows that hold the band (``_band_tiles``), the
+    light culls and the sky and
+    background rays take the band's rows, and the GBufferVis contact sheet
+    (debug view 9), which samples other rows, is off. ``shadow_rows=(sy0,
+    s_rows, gather_fn)`` rasterizes only map rows [sy0, sy0 + s_rows) and
+    builds the map with ``gather_fn(band)``; ``shadowmap_override`` takes an
+    already-computed (D, D) shadow map instead of rasterizing one (the
+    striped path renders several bands on one map). NDC-to-pixel mapping
+    always uses the full viewport: ``rows`` only sizes the buffers."""
     if config.raster not in _RASTER_BACKENDS:
         raise ValueError(
             f"config.raster={config.raster!r}: expected one of "
             f"{_RASTER_BACKENDS}")
-    band = (not full_frame) or y0 != 0 or (
-        rows is not None and rows != config.height)
-    why = unported_reasons(scene, view, meta, config, full_frame=not band)
-    if why:
-        raise NotImplementedError("; ".join(why))
+    if config.pcf_backend not in _PCF_BACKENDS:
+        raise ValueError(
+            f"config.pcf_backend={config.pcf_backend!r}: expected one of "
+            f"{_PCF_BACKENDS}")
+    if int(y0) != y0 or y0 < 0:
+        raise ValueError(f"y0 must be a non-negative row, got {y0!r}")
+    y0 = int(y0)
     dev = scene.pair_pos.device
     if config.raster == "cuda" and dev.type != "cuda":
         raise RuntimeError(
             "config.raster='cuda' needs the scene on the card; it is on "
             f"{dev}")
+    band = not full_frame
     width = config.width
-    height = config.height
+    height = config.height if rows is None else int(rows)
+    vp_h = config.height
 
     # ---- point lights culled to screen tiles, once per pass.
     route = point_light_route(view, config)
@@ -846,7 +962,7 @@ def render_rows(
         """(tiled_points, pallas_points) of one pass: the point lights
         culled against that pass's own visible surface."""
         nonlocal light_drops
-        tiled, pallas, drops = cull_lights(view, config, route, attrs)
+        tiled, pallas, drops = cull_lights(view, config, route, attrs, y0)
         if drops is not None:
             light_drops = light_drops + drops
         return tiled, pallas
@@ -898,31 +1014,17 @@ def render_rows(
     if shadowmap_override is not None:
         shadowmap = shadowmap_override.to(torch.float32).contiguous()
     elif config.enable_shadow:
-        clip_sh = apply_mat4_h(view.shadow_space, world)
-        # CAMERA culling must NOT apply here - geometry behind the camera
-        # still casts shadows. The LIGHT frustum is a different matter:
-        # meshlets outside it cannot write the map (exact), and closed-mesh
-        # scenes can opt into the light-apex cone test (shadow_cone_cull).
-        sh_valid = scene.tri_valid
-        if meta.has_meshlets:
-            vis_sh = meshlet_cull(
-                scene.meshlet_records,
-                mat4_product(view.shadow_space, view.model),
-                view.dir_lights[0, 0, :3], model=view.model,
-                cone=config.shadow_cone_cull)
-            sh_valid = sh_valid & (expand_meshlet_mask(
-                vis_sh, torch.clamp_min(tri_meshlet, 0)) | no_meshlet)
-        setup_sh = triangle_setup(
-            clip_sh[tri_vtx],
-            config.shadowmap_dim,
-            config.shadowmap_dim,
-            two_sided=True,
-            valid_mask=sh_valid,
-            depth_bias=(config.shadow_bias_constant,
-                        config.shadow_bias_slope),
-        )
-        shadowmap, pairs_sh, covf_sh = _raster_depth(
-            setup_sh, config.shadowmap_dim, config)
+        setup_sh = _shadow_setup(scene, view, meta, config, world, tri_vtx,
+                                 no_meshlet if meta.has_meshlets else None)
+        if shadow_rows is not None:
+            sy0, s_rows, gather_fn = shadow_rows
+            shadow_band, pairs_sh, covf_sh = _raster_depth(
+                _band_mask_setup(setup_sh, sy0, s_rows),
+                config.shadowmap_dim, config, y0=int(sy0), rows=int(s_rows))
+            shadowmap = gather_fn(shadow_band)
+        else:
+            shadowmap, pairs_sh, covf_sh = _raster_depth(
+                setup_sh, config.shadowmap_dim, config)
         shadowmap = shadowmap.contiguous()
         dropped(pairs_sh, covf_sh)
         live_pairs["shadow"] = pairs_sh.gbounds[1]
@@ -952,22 +1054,25 @@ def render_rows(
     if use_env:
         if sky_on:
             sky_uv, sky_depth, sky_hit = _sky_ray(scene, view, height,
-                                                  width, config)
+                                                  width, config, y0)
         else:
             sky_uv = torch.zeros((height, width, 2), dtype=torch.float32,
                                  device=dev)
             sky_hit = torch.zeros((height, width), dtype=torch.bool,
                                   device=dev)
-        bg_uv = _screen_uv(height, width, config, dev) if bg_on else None
+        bg_uv = (_screen_uv(height, width, config, dev, y0) if bg_on
+                 else None)
 
     # ---- 2. deferred scene -> GBuffer
     shadow_factor = None
     if meta.has_deferred:
         setup = triangle_setup(
-            tri_clip, width, height,
+            tri_clip, width, vp_h,
             two_sided=scene.tri_two_sided,
             valid_mask=tri_valid & scene.tri_deferred,
         )
+        if band:
+            setup = _band_mask_setup(setup, y0, height)
         f_uv, f_combo, _ = _fused_flags(meta)
         n_t = setup.edge.shape[0]
         depth_d, tid_d, planes_d, pairs_d, covf_d = _raster_vis_fused(
@@ -975,7 +1080,7 @@ def render_rows(
             lambda cidx: _fused_extra(scene, n_t, world, n_world,
                                       tri_idx=cidx, need_uv=f_uv,
                                       need_combo=f_combo),
-            height, width, config, meta=meta)
+            height, width, config, meta=meta, y0=y0)
         attrs_d = surface_attributes_from_planes(
             scene, planes_d, config, var_ch=meta.tex_channels,
             flat_normal=meta.flat_normal)
@@ -989,7 +1094,7 @@ def render_rows(
         color, shadow_factor = resolve_lighting(
             gbuf, shadowmap, scene, view, config,
             tiled_points=tiled_points, pallas_points=pallas_points,
-            env_fetch=env_fetch_of(attrs_d.covered))
+            env_fetch=env_fetch_of(attrs_d.covered), enable_vis=not band)
         dropped(pairs_d, covf_d)
         live_pairs["gbuffer"] = pairs_d.gbounds[1]
     else:
@@ -1004,10 +1109,12 @@ def render_rows(
     # point lights are culled against their own visible surface.
     if meta.has_forward:
         setup_f = triangle_setup(
-            tri_clip, width, height,
+            tri_clip, width, vp_h,
             two_sided=scene.tri_two_sided,
             valid_mask=tri_valid & ~scene.tri_deferred,
         )
+        if band:
+            setup_f = _band_mask_setup(setup_f, y0, height)
         f_uv, f_combo, _ = _fused_flags(meta)
         n_t = setup_f.edge.shape[0]
         depth, tid_f, planes_f, pairs_f, covf_f = _raster_vis_fused(
@@ -1015,7 +1122,7 @@ def render_rows(
             lambda cidx: _fused_extra(scene, n_t, world, n_world,
                                       tri_idx=cidx, need_uv=f_uv,
                                       need_combo=f_combo),
-            height, width, config, meta=meta, init_depth=depth_d)
+            height, width, config, meta=meta, init_depth=depth_d, y0=y0)
         attrs_f = surface_attributes_from_planes(
             scene, planes_f, config, var_ch=meta.tex_channels,
             flat_normal=meta.flat_normal)
@@ -1052,10 +1159,10 @@ def render_rows(
             depth = torch.where(sky_mask, sky_depth, depth)
         elif config.skydome_mode == "analytic":
             color, depth = _skydome_analytic(
-                scene, view, depth, color, height, width, config)
+                scene, view, depth, color, height, width, config, y0)
         else:
             color, depth, pairs_sky, covf_sky = _skydome_mesh(
-                scene, view, depth, color, height, width, config)
+                scene, view, depth, color, height, width, config, y0)
             dropped(pairs_sky, covf_sky)
             live_pairs["skydome"] = pairs_sky.gbounds[1]
 
@@ -1067,7 +1174,8 @@ def render_rows(
             bg_rgb = gamma_correct(env_cell["bg"][..., :3])
             color = torch.where(bg_mask[..., None], bg_rgb, color)
         else:
-            color = _background(scene, depth, color, height, width, config)
+            color = _background(scene, depth, color, height, width, config,
+                                y0)
 
     aux = {
         "depth": depth,

@@ -16,11 +16,16 @@ AFTER the dynamic model matrix (BaseInstanced.vert:74).
 Everything up to the last step is NumPy on the host; ``build(device)``
 uploads each pool once. bfloat16 atlases are packed as float32 arrays of
 bf16-rounded values and cast (exactly) at upload.
+
+Packed atlases are cached by content (``cached_atlas``): a device-resident
+LRU of ``DEVICE_ATLAS_ENTRIES`` entries shared across rebuilds, so a
+livelink reload that keeps its textures pays neither packing nor upload.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -30,6 +35,36 @@ from zeldaengine_tpu_torch.config import EngineConfig
 from zeldaengine_tpu_torch.ops.texture import round_bf16
 from zeldaengine_tpu_torch.scene.mesh import Mesh, make_sphere
 from zeldaengine_tpu_torch.utils.device import require_device
+
+
+# Packed and uploaded texture atlases keyed by (kind, shape, dtype, md5 of
+# the source images, device), least recently used first.
+_DEVICE_ATLAS_CACHE: dict = {}
+DEVICE_ATLAS_ENTRIES = 8
+
+
+def cached_atlas(kind: str, images: np.ndarray, build_fn, bf16: bool,
+                 device) -> torch.Tensor:
+    """``build_fn(images, bf16=bf16)`` (a host packer) uploaded to
+    ``device`` as bfloat16 or float32, through a device-resident LRU keyed
+    by content. A hit returns the cached tensor itself: atlases are never
+    written after the build. The JAX package also keeps the packed atlases
+    on disk for a new process; here packing is NumPy, and a disk tier saved
+    no time (``tests/torch_atlas_cache_timing.py``, PERF.md)."""
+    dtype = "bfloat16" if bf16 else "float32"
+    images = np.ascontiguousarray(images)
+    dev_key = (kind, tuple(images.shape), dtype,
+               hashlib.md5(images).hexdigest(), str(device))
+    hit = _DEVICE_ATLAS_CACHE.pop(dev_key, None)
+    if hit is None:
+        host = np.ascontiguousarray(build_fn(images, bf16=bf16), np.float32)
+        hit = torch.from_numpy(host).to(device).to(
+            torch.bfloat16 if bf16 else torch.float32)
+    while len(_DEVICE_ATLAS_CACHE) >= DEVICE_ATLAS_ENTRIES:
+        _DEVICE_ATLAS_CACHE.pop(next(iter(_DEVICE_ATLAS_CACHE)))
+    # Re-inserted last: a hit stays alive under rotating world reloads.
+    _DEVICE_ATLAS_CACHE[dev_key] = hit
+    return hit
 
 
 def _morton3(q: np.ndarray) -> np.ndarray:
@@ -596,11 +631,11 @@ class SceneBuilder:
             t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
             return t if dtype is None else t.to(dtype)
 
-        def atlas(images, build_fn, bf16=True):
-            # Packed on the host, uploaded once; bf16 atlases hold
-            # bf16-exact f32 values, so the cast loses nothing.
-            host = build_fn(images, bf16=bf16)
-            return upload(host, torch.bfloat16 if bf16 else torch.float32)
+        def atlas(kind, images, build_fn, bf16=True):
+            # Packed on the host, uploaded once (or found in the atlas
+            # caches); bf16 atlases hold bf16-exact f32 values, so the cast
+            # loses nothing.
+            return cached_atlas(kind, images, build_fn, bf16, device)
 
         combo_cache = {}
         mat_combined = np.zeros((mats.shape[0],), np.int32)
@@ -634,7 +669,7 @@ class SceneBuilder:
         mat_const = upload(round_bf16(stack16[:, 0, 0, :]))
         atlas_src = (stack16[..., list(tex_channels)] if tex_channels
                      else stack16[..., :1])
-        combined_atlas = atlas(atlas_src, _bmp)
+        combined_atlas = atlas("combined", atlas_src, _bmp)
 
         pair_static = np.zeros((p_cap, 8), np.float32)
         pair_static[:n_pairs, 0:2] = pair_uv
@@ -651,7 +686,7 @@ class SceneBuilder:
         tri_meshlet_arr[:n_tris] = tri_msh
 
         # Quad-packed cube rows.
-        cube_atlas = atlas(self.cube_faces, _bma)
+        cube_atlas = atlas("cube", self.cube_faces, _bma)
         # Static shininess gate for the low-tier cube: the pair1 path is
         # exact only when every pixel's reflection lod >= 1, i.e. the
         # scene's minimum material roughness >= 0.031 (Common.glsl mip
@@ -664,7 +699,7 @@ class SceneBuilder:
             default=1.0,
         )
         cube_pair1 = (
-            atlas(self.cube_faces, _build_cube_pair1)
+            atlas("cube_p1", self.cube_faces, _build_cube_pair1)
             if self.config.cube_low_tier and min_rough >= 0.031 else None
         )
         # Constant-lod reflection (GpuScene.cube_const): at min roughness
@@ -679,8 +714,8 @@ class SceneBuilder:
                 lv = lv.reshape(n6, sz // 2, 2, sz // 2, 2,
                                 lv.shape[-1]).mean(axis=(2, 4))
             cube_const = upload(round_bf16(lv[..., :3]))
-        sky_tex = atlas(self.sky_image[None], _bma)
-        bg_tex = atlas(self.bg_image[None], _bma)
+        sky_tex = atlas("sky", self.sky_image[None], _bma)
+        bg_tex = atlas("bg", self.bg_image[None], _bma)
         env_table = None
         env_shapes = None
         if self.config.env_merge:
@@ -692,7 +727,7 @@ class SceneBuilder:
                 build_quad_pair_atlas_host as _bqp,
             )
 
-            cube_qp = atlas(self.cube_faces, _bqp)
+            cube_qp = atlas("cube_qp", self.cube_faces, _bqp)
             env_table, _rows = flatten_env_tables(cube_qp, sky_tex, bg_tex)
             env_shapes = (tuple(cube_qp.shape[:3]),
                           tuple(sky_tex.shape[:3]),
@@ -727,8 +762,10 @@ class SceneBuilder:
             meshlet_records=upload(meshlet_records),
             tri_meshlet=upload(tri_meshlet_arr),
             env_table=env_table,
-            sky_planes=atlas(self.sky_image[None], _planes_f32, bf16=False),
-            bg_planes=atlas(self.bg_image[None], _planes_f32, bf16=False),
+            sky_planes=atlas("sky_pl", self.sky_image[None], _planes_f32,
+                             bf16=False),
+            bg_planes=atlas("bg_pl", self.bg_image[None], _planes_f32,
+                            bf16=False),
             cube_pair1=cube_pair1,
             cube_const=cube_const,
             mat_const=mat_const,
