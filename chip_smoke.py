@@ -84,6 +84,13 @@ from zeldaengine_tpu_torch.scene.assets import (  # noqa: E402
 from zeldaengine_tpu_torch.scene.demo import build_golden_scene  # noqa: E402
 from zeldaengine_tpu_torch.utils.image import read_png  # noqa: E402
 
+# The setup's seeded edge cases, shared with the CPU tests.
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+from _torch_setup_cases import (  # noqa: E402
+    HEIGHT as EDGE_H, WIDTH as EDGE_W, setup_edge_clips, two_sided_modes,
+    valid_mask)
+
 # Published peaks of one H100 SXM (NVIDIA data sheet): the roofline the
 # kernels' bounds are stated against.
 PEAK_BYTES_PER_S = 3.35e12
@@ -102,6 +109,15 @@ OPS_PER_PIXEL_LIGHT = 115
 # fp32 operations of one PCF tap: 2 for the coordinate, floor, subtract and
 # clamp, the compare, the select and the add.
 OPS_PER_TAP = 8
+# fp32 operations of one triangle of kernel triangle_setup (a fused
+# multiply-add as 2): pixel coordinates (24), the nine minors (27), the
+# determinant (5), orientation and keep (8), the row scale (19), the
+# scaled edges, det_scaled, 1/det and zc (19), the bbox (41) and zmin (6);
+# the depth bias adds the slope chain (10), its max (3), the bias (2), the
+# division (1) and the biased zc (9).
+OPS_PER_SETUP = 149
+OPS_PER_SETUP_BIAS = 25
+SETUP_FIELDS = ("edge", "zc", "valid", "bbox", "zmin")
 # Where each kernel's wrapper is called on its path (module, name): the
 # argument shim replaces these names while a frame is noted.
 FRAME_CALLS = {
@@ -113,28 +129,33 @@ FRAME_CALLS = {
     "pcf_window": (frame_graph, "compute_pcf_pallas"),
     "pcf_window_table": (shadow, "build_pcf_window_table"),
     "pcf_window2d_table": (shadow, "build_pcf_window2d_table"),
+    "triangle_setup": (frame_graph, "triangle_setup"),
 }
 # Failures found by a phase whose kernels phase kernels replays first.
 FAILURES = []
-# Launches of each kernel in one frame of each path. Kernel fma computes
-# the vertex transforms' multiply-adds (2 for positions and normals, 2 for
-# each clip transform) and triangle_setup's (3 a pass, 4 more for the
-# shadow pass's depth bias). Config 3's deferred frame: 2 + 2 + 2 + 7 + 3.
+# Launches of each kernel in one frame of each path. Kernel
+# triangle_setup runs once a raster pass (the shadow pass with its depth
+# bias); kernel fma computes the vertex transforms' multiply-adds, two
+# launches a transform (``_mat4_sum``): positions and normals, the camera's
+# clip transform, the shadow clip transform. Config 3's deferred frame:
+# 2 setups, 2 + 2 + 2 fma.
 MAIN_PATH = {"pair_raster": 1, "pair_raster_fused": 1, "pcf_taps": 1,
-             "bilinear_tap": 1, "point_lights": 1, "fma": 16}
+             "bilinear_tap": 1, "point_lights": 1, "fma": 6,
+             "triangle_setup": 2}
 # The config-1 forward frame (no shadow map, no skydome, no point light:
 # the forward raster and its PCF) and the golden scene's view 0 (a
 # deferred and a forward pass; two point-light slots, below
 # point_kernel_min: the plain loop, unless the kernel is asked for).
-FORWARD_PATH = {"pair_raster_fused": 1, "pcf_taps": 1, "fma": 7}
+FORWARD_PATH = {"pair_raster_fused": 1, "pcf_taps": 1, "fma": 4,
+                "triangle_setup": 1}
 GOLDEN_PATH = {"pair_raster": 1, "pair_raster_fused": 2, "pcf_taps": 2,
-               "bilinear_tap": 1, "fma": 19}
+               "bilinear_tap": 1, "fma": 6, "triangle_setup": 3}
 # Bench config 4 (no point light: K5 never). Kernel fma also runs the two
 # meshlet culls' sums (ops/culling.py): 3 for each view-model product and
 # 14 for each cull with its cone test (the shadow pass's too:
-# shadow_cone_cull).
+# shadow_cone_cull): 6 + 34.
 FRAME4_PATH = {"pair_raster": 1, "pair_raster_fused": 1, "pcf_taps": 1,
-               "bilinear_tap": 1, "fma": 50}
+               "bilinear_tap": 1, "fma": 40, "triangle_setup": 2}
 # Bench config 5 (the engine's frame of the demo world, deferred only, 16
 # point lights culled to 40x128 blocks): K1-K5 once per rendered frame.
 CONFIG5_KERNELS = ("pair_raster", "pair_raster_fused", "pcf_taps",
@@ -142,8 +163,9 @@ CONFIG5_KERNELS = ("pair_raster", "pair_raster_fused", "pcf_taps",
 # Phase options (config 3's frame, its scene with a seeded background image
 # and the merged environment table): the frames of the remaining frame
 # options, each with its launches per frame. The dome mesh adds one K1
-# launch (ids, the frame's depth as initial depth) and 7 of kernel fma
-# (its vertex transforms and setup); the background rect one K4 launch;
+# launch (ids, the frame's depth as initial depth), 4 of kernel fma (its
+# two vertex transforms) and one of kernel triangle_setup; the background
+# rect one K4 launch;
 # the merged tap replaces both K4 launches; the ablations drop K3 ("nopcf"),
 # K5 ("nolight") and K4 ("nosky").
 ABLATE_ALL = ("nopcf pcfcoords pcfbuild nolight nodirect norefl reflgather "
@@ -151,7 +173,7 @@ ABLATE_ALL = ("nopcf pcfcoords pcfbuild nolight nodirect norefl reflgather "
 OPTION_FRAMES = {
     "mesh_skydome_background": (
         dict(skydome_mode="mesh", enable_background=True),
-        dict(MAIN_PATH, pair_raster=2, fma=23)),
+        dict(MAIN_PATH, pair_raster=2, fma=10, triangle_setup=3)),
     "ysort_off": (dict(raster_ysort=False), MAIN_PATH),
     "early_out_aligned": (
         dict(raster_ysort=False, raster_early_out=True, pair_align=True),
@@ -216,11 +238,15 @@ KERNELS = {
         source="zeldaengine_tpu_torch/csrc/pcf_window_table.cu",
         replaces="zeldaengine_tpu/ops/pcf_pallas.py:311"),
     # No pallas_call: XLA fuses these multiply-adds in the reference's
-    # compiled triangle_setup (the depth-bias slope chain at this line)
-    # and vertex transforms.
+    # compiled vertex transforms (apply_mat4_point at this line), view
+    # matrices and meshlet culls.
     "fma": dict(
         source="zeldaengine_tpu_torch/csrc/fma.cu",
-        replaces="zeldaengine_tpu/ops/rasterize.py:127"),
+        replaces="zeldaengine_tpu/math/transforms.py:195"),
+    # No pallas_call: XLA's fusion of triangle_setup, at this line.
+    "triangle_setup": dict(
+        source="zeldaengine_tpu_torch/csrc/triangle_setup.cu",
+        replaces="zeldaengine_tpu/ops/rasterize.py:51"),
 }
 
 
@@ -352,9 +378,8 @@ def recorded_calls(calls: dict):
     shim(frame_graph, "build_pairs", "build_pairs")
     for key, (module, name) in FRAME_CALLS.items():
         shim(module, name, key)
-    # fma_f32 is called by name from both modules.
-    for module in (transforms, rast):
-        shim(module, "fma_f32", "fma")
+    # fma_f32 is called by name from its own module.
+    shim(transforms, "fma_f32", "fma")
     try:
         yield calls
     finally:
@@ -472,6 +497,56 @@ def one_block_a_tile():
 
 def bytes_bound(n_bytes: int) -> dict:
     return dict(bound_ms=n_bytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
+
+
+def cmp_setup(k, p) -> dict:
+    """Kernel triangle_setup against its plain version on all five fields:
+    floats as int32 bits (a zero's sign counts; two NaNs are equal, as
+    in the CPU tests), the valid mask as booleans."""
+    err = 0.0
+    for name in SETUP_FIELDS:
+        a, b = getattr(k, name), getattr(p, name)
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"triangle_setup {name}: {a.dtype}{tuple(a.shape)} against "
+              f"{b.dtype}{tuple(b.shape)}")
+        if a.dtype == torch.bool:
+            same = a == b
+        else:
+            same = (a.view(torch.int32) == b.view(torch.int32)) | (
+                a.isnan() & b.isnan())
+            err = max(err, float(torch.nan_to_num((a - b).abs(), nan=0.0)
+                                 .max()) if a.numel() else 0.0)
+        bad = int((~same).sum())
+        check(bad == 0, f"triangle_setup {name}: {bad} values differ "
+              f"(max-abs {err})")
+    return {"max_abs_err": err, "valid": int(k.valid.sum())}
+
+
+def setup_replays(calls) -> dict:
+    """Every noted triangle_setup call through the kernel and the plain
+    version, compared by ``cmp_setup``."""
+    errs = [cmp_setup(rast.triangle_setup(*a, backend="cuda", **kw),
+                      rast.triangle_setup(*a, backend="torch", **kw))
+            ["max_abs_err"] for a, kw in calls]
+    return {"calls": len(calls), "max_abs_err": max(errs, default=0.0)}
+
+
+def setup_bound(args, kw) -> dict:
+    """Bytes (the clip rows and masks read once, the five fields written
+    once) and operations of one triangle_setup call, and the larger of
+    the two times."""
+    n = args[0].shape[0]
+    masks = sum(m.numel() for m in (kw.get("two_sided"),
+                                    kw.get("valid_mask"))
+                if isinstance(m, torch.Tensor))
+    n_bytes = args[0].numel() * 4 + masks + n * (36 + 12 + 1 + 16 + 4)
+    n_ops = n * (OPS_PER_SETUP + (OPS_PER_SETUP_BIAS
+                                  if kw.get("depth_bias") else 0))
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_FP32_PER_S * 1e3
+    return dict(triangles=n, bytes=n_bytes, operations=n_ops,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def compare_raster(kernel_out, plain_out, fused: bool) -> dict:
@@ -1280,6 +1355,12 @@ def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
         (grid[:, :1], vb[:100], 0.1), {}, cmp_fma)
     run("fma", "strided views, scalar factor", fma,
         (grid[:, ::3], 7.5, grid.t()[::3].t()), {}, cmp_fma)
+    run("fma", "flat views off 16-byte alignment, 4k + 3 values", fma,
+        (va[1:4004], vb[2:4005], vc[3:4006]), {}, cmp_fma)
+    cube = va[:4620].reshape(6, 11, 70)
+    run("fma", "3 dimensions: a strided view, a stride-0 middle dim",
+        fma, (cube[:, ::2], vb[:420].reshape(6, 1, 70).expand(6, 6, 70),
+              vc[:36].reshape(6, 6, 1)), {}, cmp_fma)
 
     def out_numel(args):
         return torch.broadcast_shapes(*(a.shape for a in args
@@ -1297,10 +1378,21 @@ def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
     library = dict(library_ms=None)
     if all(isinstance(a, torch.Tensor) for a in big_args):
         # addcmul is the same function up to its rounding: whether it
-        # fuses the multiply-add is the library's choice.
+        # fuses the multiply-add is the library's choice. The two in turns
+        # (kernel, library, library, kernel, three times), each from a
+        # CUDA graph of 50 calls; the medians.
         fa, fb, fc = big_args
         lib = lambda: torch.addcmul(fc, fa, fb)  # noqa: E731
-        library = dict(library_ms=graph_ms(lib, 20),
+        turns = {"kernel": [], "library": []}
+        for _ in range(3):
+            for who in ("kernel", "library", "library", "kernel"):
+                turns[who].append(graph_ms(call if who == "kernel" else lib,
+                                           50))
+        times.update(ms=statistics.median(turns["kernel"]),
+                     kernel_ms=statistics.median(turns["kernel"]),
+                     ms_turns=turns["kernel"])
+        library = dict(library_ms=statistics.median(turns["library"]),
+                       library_ms_turns=turns["library"],
                        library_bitwise_equal=torch.equal(
                            lib().view(torch.int32), call().view(torch.int32)))
     frame_calls = lambda b: [fma(*a, backend=b, **kw)  # noqa: E731
@@ -1312,12 +1404,77 @@ def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
                                      for c in checks["fma"]),
                      **times, plain_ms=plain_ms,
                      shape=list(out_numel(big_args)),
+                     layout=dict(zip(("sizes", "modes"), transforms.fma_layout(
+                         out_numel(big_args),
+                         [x.expand(out_numel(big_args)).stride()
+                          if isinstance(x, torch.Tensor) else None
+                          for x in big_args])[:2])),
                      frame_calls_ms=graph_ms(lambda: frame_calls("cuda"), 5),
                      frame_calls_plain_ms=cuda_ms(
                          lambda: frame_calls("torch"), 3),
                      bytes=n_bytes, bound_ms=max(t_bytes, t_ops),
                      bound_by="bytes" if t_bytes >= t_ops else "operations",
                      **library))
+
+    # ---- triangle_setup: bit for bit with its plain version (cmp_setup)
+    # on every call of each path's frame and on the seeded edge cases.
+    s_calls = paths["frame"]["all:triangle_setup"]
+    check(len(s_calls) == MAIN_PATH["triangle_setup"],
+          f"frame: triangle_setup called {len(s_calls)} times")
+    for path, noted in paths.items():
+        calls = noted["all:triangle_setup"]
+        checks.setdefault("triangle_setup", []).append(
+            {"case": f"{path}: all {len(calls)} calls of a frame",
+             **setup_replays(calls)})
+    edge = setup_edge_clips()
+    eclip = torch.from_numpy(np.concatenate(list(edge.values()))).cuda()
+    n_e = eclip.shape[0]
+    for mode, two in two_sided_modes(n_e).items():
+        if mode == "mask":
+            two = torch.from_numpy(two).cuda()
+        vm = None if mode == "false" else torch.from_numpy(
+            valid_mask(n_e)).cuda()
+        for bias in (None, (1.25, 7.5)):
+            run("triangle_setup", f"edge cases ({', '.join(edge)}), "
+                f"two_sided {mode}, valid_mask {vm is not None}, "
+                f"depth_bias {bias}", rast.triangle_setup,
+                (eclip, EDGE_W, EDGE_H),
+                dict(two_sided=two, valid_mask=vm, depth_bias=bias),
+                cmp_setup)
+    check(any(c["valid"] for c in checks["triangle_setup"][-6:]),
+          "the edge cases keep no triangle")
+    # Config 3's two calls: the shadow pass (depth bias) and the GBuffer.
+    (sh_args, sh_kw), = [c for c in s_calls if c[1].get("depth_bias")]
+    (gb_args, gb_kw), = [c for c in s_calls if not c[1].get("depth_bias")]
+
+    def setup_call(args, kw, backend):
+        return lambda: rast.triangle_setup(*args, backend=backend, **kw)
+
+    times = kernel_times(setup_call(gb_args, gb_kw, "cuda"), 20)
+    frame_setups = lambda b: [rast.triangle_setup(  # noqa: E731
+        *a, backend=b, **kw) for a, kw in s_calls]
+    rows.append(dict(name="triangle_setup", route="cuda",
+                     **KERNELS["triangle_setup"],
+                     launches=frame_launches["triangle_setup"],
+                     launches_per_frame_by_path=by_path("triangle_setup"),
+                     max_abs_err=max(c["max_abs_err"]
+                                     for c in checks["triangle_setup"]),
+                     call="GBuffer pass", **times,
+                     plain_ms=cuda_ms(setup_call(gb_args, gb_kw, "torch"),
+                                      3),
+                     **setup_bound(gb_args, gb_kw),
+                     shadow=dict(
+                         call="shadow pass, depth bias",
+                         ms=graph_ms(setup_call(sh_args, sh_kw, "cuda"), 20),
+                         plain_ms=cuda_ms(
+                             setup_call(sh_args, sh_kw, "torch"), 3),
+                         **setup_bound(sh_args, sh_kw)),
+                     frame_calls_ms=graph_ms(lambda: frame_setups("cuda"), 5),
+                     frame_calls_plain_ms=cuda_ms(
+                         lambda: frame_setups("torch"), 3),
+                     # No PyTorch call computes the setup: it is ~90
+                     # operations (its plain version).
+                     library_ms=None))
     emit("kernels", checks=checks)
     return rows
 
@@ -1700,11 +1857,15 @@ def _drive_config5(engine, config, build_s):
           f"config5: a push failed: {pushes[-1]}")
     rendered = engine.stats.frame_index - rendered0
     check(rendered == n, f"{rendered} frames rendered for {n} ticks")
-    # Kernel fma's count follows the setup's passes (as in config 3's
-    # frame): a whole number of launches a frame.
+    # Kernels fma and triangle_setup follow the frame's passes (as in
+    # config 3's frame): a whole number of launches a frame.
     check_launches(launches, dict({k: n for k in CONFIG5_KERNELS},
-                                  fma=launches["fma"]), "config5")
-    check(launches["fma"] % n == 0, f"config5: fma {launches['fma']}")
+                                  fma=launches["fma"],
+                                  triangle_setup=launches["triangle_setup"]),
+                   "config5")
+    for k in ("fma", "triangle_setup"):
+        check(launches[k] % n == 0 and launches[k] > 0,
+              f"config5: {k} {launches[k]}")
     check(engine.stats.reloads >= 1, "config5: no streamed world reloaded")
     check(engine.scene is scene0, "config5: a camera push rebuilt the scene")
     for img in frames:
@@ -2313,12 +2474,12 @@ def phase_options():
 def band_launches(n: int, calls: int) -> dict:
     """Launches of one banded frame of ``n`` shadow bands and ``calls``
     ``render_rows`` calls: K1 once a shadow band; K2-K5 once a call; kernel
-    fma 11 a shadow band (the pair positions' transform 2, the shadow clip
-    transform 2, the biased setup 7) and 7 a call (positions and normals 2,
-    the clip transform 2, the GBuffer setup 3)."""
+    triangle_setup once a shadow band and once a call; kernel fma 4 a
+    shadow band (the pair positions' transform 2, the shadow clip transform
+    2) and 4 a call (positions and normals 2, the clip transform 2)."""
     return {"pair_raster": n, "pair_raster_fused": calls, "pcf_taps": calls,
             "bilinear_tap": calls, "point_lights": calls,
-            "fma": 11 * n + 7 * calls}
+            "fma": 4 * n + 4 * calls, "triangle_setup": n + calls}
 
 
 def depth_tie_ids(setup, y0: int, ids_a, ids_b, depth) -> dict:
@@ -2347,8 +2508,9 @@ def depth_tie_ids(setup, y0: int, ids_a, ids_b, depth) -> dict:
 
 def band_replays(calls: dict) -> tuple:
     """Every K1 and K2 call of a banded frame with ``y0_tiles`` > 0 against
-    its plain version (bit for bit, ids included), and K1's band outputs in
-    call order (the shadow bands, top to bottom)."""
+    its plain version (bit for bit, ids included), every triangle_setup
+    call against its plain version (``cmp_setup``), and K1's band outputs
+    in call order (the shadow bands, top to bottom)."""
     out = {}
     bands = []
     for name, wrapper, fused in (("pair_raster", rc.rasterize_pairs, False),
@@ -2370,6 +2532,7 @@ def band_replays(calls: dict) -> tuple:
         out[name] = dict(calls_y0_tiles_positive=n,
                          calls=len(calls["all:" + name]),
                          max_abs_err=max(errs), id_mismatches=ids)
+    out["triangle_setup"] = setup_replays(calls["all:triangle_setup"])
     return out, bands
 
 
@@ -2626,6 +2789,10 @@ def phase_bands(scene, meta, world, config):
             edge_cases={k: v for k, v in edge.items()
                         if ("pair_raster_fused" in k)
                         == (name == "pair_raster_fused")})}
+    kernel_extra["triangle_setup"] = {"bands": dict(
+        launches_per_banded_frame={c: out[c]["launches"]["triangle_setup"]
+                                   for c in out},
+        replays={c: out[c]["replays"]["triangle_setup"] for c in out})}
     return kernel_extra
 
 

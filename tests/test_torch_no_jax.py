@@ -48,11 +48,11 @@ def test_package_layout_is_there():
     csrc = set(os.listdir(os.path.join(PKG, "csrc")))
     assert {"pair_raster.cu", "pair_raster_fused.cu", "pcf_taps.cu",
             "bilinear_tap.cu", "point_lights.cu", "pcf_window.cu",
-            "pcf_window_table.cu", "fma.cu"} <= csrc
+            "pcf_window_table.cu", "fma.cu", "triangle_setup.cu"} <= csrc
     # Every kernel registered with its wrapper has a C entry point bound.
     from zeldaengine_tpu_torch.ops import KERNEL_WRAPPERS, _build
 
-    assert len(KERNEL_WRAPPERS) == 9
+    assert len(KERNEL_WRAPPERS) == 10
     for name in KERNEL_WRAPPERS:
         assert "zk_" + name in _build._SIGNATURES
 

@@ -11,7 +11,7 @@ import torch
 
 from zeldaengine_tpu.ops import rasterize as jr
 from zeldaengine_tpu_torch.convert import setup_from_numpy
-from zeldaengine_tpu_torch.math.transforms import fma_f32_plain
+from zeldaengine_tpu_torch.math.transforms import fma_f32, fma_f32_plain
 from zeldaengine_tpu_torch.ops import rasterize as tr
 
 from _torch_compare import to_numpy_leaves
@@ -74,14 +74,14 @@ def test_fma_f32_rounds_once():
         b += list((rng.standard_normal(2000) * scale).astype(f32))
         c += list((rng.standard_normal(2000) * scale).astype(f32))
     a, b, c = (np.array(x, f32) for x in (a, b, c))
-    got = tr.fma_f32(torch.from_numpy(a), torch.from_numpy(b),
-                     torch.from_numpy(c)).numpy()
+    got = fma_f32(torch.from_numpy(a), torch.from_numpy(b),
+                  torch.from_numpy(c)).numpy()
     # CPU tensors take the plain version; the kernel needs the card.
     np.testing.assert_array_equal(got, fma_f32_plain(
         torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)))
     with pytest.raises(RuntimeError, match="card"):
-        tr.fma_f32(torch.from_numpy(a), 2.0, 1.0, backend="cuda")
-    assert tr.fma_f32.launches == 0
+        fma_f32(torch.from_numpy(a), 2.0, 1.0, backend="cuda")
+    assert fma_f32.launches == 0
     naive = (a.astype(np.float64) * b + c).astype(f32)
     assert got[0] == f32(1 + 2.0 ** -23) and naive[0] != got[0]
     for x, y, z, g in zip(a, b, c, got):

@@ -279,8 +279,9 @@ def fma_f32(a: torch.Tensor, b, c, backend: str = "auto") -> torch.Tensor:
     """fp32 ``a * b + c`` with ONE rounding (a fused multiply-add), the
     operands broadcast together; ``b`` and ``c`` may be Python numbers
     (fp32 constants). Tensors on the card go to kernel ``fma``
-    (``csrc/fma.cu``, ``__fmaf_rn``) in one launch; CPU tensors (or
-    ``backend="torch"``) to ``fma_f32_plain``."""
+    (``csrc/fma.cu``, ``__fmaf_rn``) in one launch over the layout
+    ``fma_layout`` collapses; CPU tensors (or ``backend="torch"``) to
+    ``fma_f32_plain``."""
     from zeldaengine_tpu_torch.ops import _build
     from zeldaengine_tpu_torch.ops.rasterize_cuda import _use_kernel
 
@@ -295,23 +296,26 @@ def fma_f32(a: torch.Tensor, b, c, backend: str = "auto") -> torch.Tensor:
     views = iter(torch.broadcast_tensors(*tensors))  # stride 0: broadcast
     ops = [next(views) if isinstance(x, torch.Tensor) else float(x)
            for x in (a, b, c)]
-    shape = ops[0].shape
-    if len(shape) > 6:
-        raise ValueError(f"fma_f32: at most 6 dimensions, got {len(shape)}")
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
-    if out.numel() == 0:
+    out = torch.empty(ops[0].shape, dtype=torch.float32, device=dev)
+    n = out.numel()
+    if n == 0:
         return out
-    meta = list(shape)
-    for x in ops:  # strides in elements
-        meta += (list(x.stride()) if isinstance(x, torch.Tensor)
-                 else [0] * len(shape))
-    meta = (ctypes.c_longlong * max(1, len(meta)))(*meta)
+    if n > 1 << 30:
+        raise ValueError(f"fma_f32: at most 2^30 elements, got {n}")
+    sizes, modes, strides = fma_layout(
+        out.shape, [x.stride() if isinstance(x, torch.Tensor) else None
+                    for x in ops])
+    divs = [v for d in sizes[1:] for v in fast_div(d)]
+    meta = [sizes[1], sizes[2], *divs, *modes, *sum(strides, [])]
+    # Two's complement bits of each multiplier that exceeds 2^31 - 1.
+    meta = (ctypes.c_int * len(meta))(
+        *[v - (1 << 32) if v >= 1 << 31 else v for v in meta])
     ptrs = [x.data_ptr() if isinstance(x, torch.Tensor) else None
             for x in ops]
     vals = [0.0 if isinstance(x, torch.Tensor) else x for x in ops]
     with torch.cuda.device(dev):
         code = _build.load().zk_fma(
-            *ptrs, *vals, out.data_ptr(), out.numel(), len(shape), meta,
+            *ptrs, *vals, out.data_ptr(), n, meta,
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, "fma")
     _FMA_WRAPPER.launches += 1
@@ -323,6 +327,60 @@ fma_f32.launches = 0
 # module's own callers reach ``fma_f32`` through its global name, which a
 # caller may patch to note the calls.
 _FMA_WRAPPER = fma_f32
+
+# Operand modes of kernel ``fma``: a Python number, laid out as the
+# contiguous output, or any other strided view.
+FMA_VALUE, FMA_FLAT, FMA_STRIDED = 0, 1, 2
+
+
+def fma_layout(shape, strides) -> tuple:
+    """The layout kernel ``fma`` walks: ``shape`` the broadcast output's,
+    ``strides`` each operand's strides over it in elements (0 along a
+    broadcast axis) or None for a Python number. Size-1 dimensions are
+    dropped and neighbours merged where the strides chain for every
+    operand; at most 3 dimensions may remain. Returns (sizes, modes,
+    strides): the 3 sizes, padded in front with 1; each operand's mode
+    (``FMA_VALUE``, ``FMA_FLAT`` where it is laid out as the contiguous
+    output, else ``FMA_STRIDED``) and its 3 strides (0 for a value)."""
+    dims = []  # (size, strides of the three operands), outer first
+    for d, size in enumerate(shape):
+        if size == 1:
+            continue
+        st = [0 if s is None else s[d] for s in strides]
+        if dims and all(o == i * size for o, i in zip(dims[-1][1], st)):
+            dims[-1] = (dims[-1][0] * size, st)
+        else:
+            dims.append((size, st))
+    if len(dims) > 3:
+        raise ValueError(f"fma_f32: the broadcast layout of {tuple(shape)} "
+                         f"keeps {len(dims)} dimensions; at most 3")
+    dims = [(1, [0, 0, 0])] * (3 - len(dims)) + dims
+    sizes = [size for size, _ in dims]
+    flat = [sizes[1] * sizes[2], sizes[2], 1]
+    modes, out = [], []
+    for k, s in enumerate(strides):
+        ks = [st[k] for _, st in dims]
+        if s is None:
+            modes.append(FMA_VALUE)
+        elif all(ks[d] == flat[d] for d in range(3) if sizes[d] > 1):
+            modes.append(FMA_FLAT)
+        else:
+            modes.append(FMA_STRIDED)
+        if sum((size - 1) * st for size, st in zip(sizes, ks)) >= 1 << 31:
+            raise ValueError("fma_f32: an operand spans 2^31 elements or "
+                             "more")
+        out.append(ks)
+    return sizes, modes, out
+
+
+def fast_div(d: int) -> tuple:
+    """(mul, shr) with ``n // d == (n * mul >> 32) >> shr`` for every
+    ``0 <= n < 2^31`` (mul 0 for d = 1: the quotient is n): kernel
+    ``fma``'s division by a size, without a divide."""
+    if d == 1:
+        return 0, 0
+    p = 31 + (d - 1).bit_length()  # 31 + ceil(log2 d)
+    return ((1 << p) + d - 1) // d, p - 32
 
 
 # The 29 low mantissa bits fp64 has beyond fp32's, and their value at an

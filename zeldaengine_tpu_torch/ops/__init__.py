@@ -1,6 +1,7 @@
 from zeldaengine_tpu_torch.ops.rasterize import (
     TriangleSetup,
     triangle_setup,
+    triangle_setup_plain,
     rasterize_visibility,
     rasterize_depth,
     interpolation_coeffs,
@@ -55,6 +56,7 @@ KERNEL_WRAPPERS = {
     "pcf_window_table": build_pcf_window_table,
     "pcf_window2d_table": build_pcf_window2d_table,
     "fma": fma_f32,
+    "triangle_setup": triangle_setup,
 }
 
 

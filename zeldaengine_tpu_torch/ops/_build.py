@@ -143,9 +143,12 @@ _SIGNATURES = {
     # shadowmap, dim_y, dim_x, lo_x, lo_y, w_y, out, stream
     "zk_pcf_window_table": [_VP, _I, _I, _I, _I, _I, _VP, _VP],
     "zk_pcf_window2d_table": [_VP, _I, _I, _I, _I, _I, _VP, _VP],
-    # a, b, c, va, vb, vc, out, n, ndim, meta (host), stream
-    "zk_fma": [_VP, _VP, _VP, _F, _F, _F, _VP, ctypes.c_longlong, _I, _VP,
-               _VP],
+    # a, b, c, va, vb, vc, out, n, meta (host), stream
+    "zk_fma": [_VP, _VP, _VP, _F, _F, _F, _VP, _I, _VP, _VP],
+    # clip, two_sided, two_sided_all, valid_mask, n, width, height,
+    # has_bias, slope_f, const_term, edge, zc, valid, bbox, zmin, stream
+    "zk_triangle_setup": [_VP, _VP, _I, _VP, _I, _F, _F, _I, _F, _F, _VP,
+                          _VP, _VP, _VP, _VP, _VP],
 }
 
 

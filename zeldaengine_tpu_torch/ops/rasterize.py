@@ -19,9 +19,11 @@ satisfies: pixel covered <=> all c_i >= 0; perspective-correct attribute
 a(p) = sum(c_i a_i)/sum(c_i); NDC depth z(p) = sum(c_i z_i) (with
 sum(c_i w_i) = 1). We use u = adj(M) @ p = det * c, normalized per triangle.
 
-``triangle_setup`` feeds the pair rasterizer (``ops/rasterize_cuda.py``);
-the chunked brute-force rasterizers here are the slow, obviously-right
-version the pair path is checked against.
+``triangle_setup`` feeds the pair rasterizer (``ops/rasterize_cuda.py``):
+on the card it is one launch of kernel ``triangle_setup``
+(``csrc/triangle_setup.cu``), elsewhere its plain version
+``triangle_setup_plain``. The chunked brute-force rasterizers here are the
+slow, obviously-right version the pair path is checked against.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from zeldaengine_tpu_torch.math.transforms import fma_f32, fma_f32_plain
+from zeldaengine_tpu_torch.math.transforms import fma_f32_plain
+from zeldaengine_tpu_torch.ops import _build
 
 
 class TriangleSetup(NamedTuple):
@@ -69,8 +72,80 @@ def triangle_setup(
     two_sided=False,
     valid_mask: Optional[torch.Tensor] = None,
     depth_bias: Optional[tuple] = None,
+    backend: str = "auto",
 ) -> TriangleSetup:
-    """Build edge/depth coefficients from clip-space triangle vertices.
+    """``triangle_setup_plain``'s constants (arguments as there; the
+    ``depth_bias`` factors Python numbers). Tensors on the card go to
+    kernel ``triangle_setup`` (``csrc/triangle_setup.cu``) in one launch,
+    bit for bit with the plain version; CPU tensors (or
+    ``backend="torch"``) to ``triangle_setup_plain``."""
+    from zeldaengine_tpu_torch.ops.rasterize_cuda import _use_kernel
+
+    if not _use_kernel(clip, backend):
+        return triangle_setup_plain(clip, width, height, two_sided,
+                                    valid_mask, depth_bias)
+    dev = clip.device
+    clip = clip.to(torch.float32).contiguous()
+    if clip.dim() != 3 or tuple(clip.shape[1:]) != (3, 4):
+        raise ValueError(f"triangle_setup: expected (T, 3, 4) clip rows, "
+                         f"got {tuple(clip.shape)}")
+    if clip.data_ptr() % 16:  # the kernel reads 16-byte rows
+        clip = clip.clone()
+    n = clip.shape[0]
+
+    def mask(m, name):
+        if m.device != dev:
+            raise ValueError(f"triangle_setup: {name} on {m.device}, the "
+                             f"clip rows on {dev}")
+        return m.to(torch.bool).expand(n).contiguous()
+
+    two = mask(two_sided, "two_sided") if isinstance(
+        two_sided, torch.Tensor) else None
+    valid_in = None if valid_mask is None else mask(valid_mask, "valid_mask")
+    slope_f = const_term = 0.0
+    if depth_bias is not None:
+        const_f, slope_f = depth_bias
+        if isinstance(const_f, torch.Tensor) or isinstance(
+                slope_f, torch.Tensor):
+            raise ValueError("triangle_setup: depth_bias takes Python numbers")
+        # Formed in fp64 and rounded to fp32 once (by ctypes), as
+        # fma_f32_plain rounds the Python number.
+        const_term = const_f * 1.1920929e-7
+    edge = torch.empty((n, 3, 3), dtype=torch.float32, device=dev)
+    zc = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    valid = torch.empty((n,), dtype=torch.bool, device=dev)
+    bbox = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    zmin = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return TriangleSetup(edge=edge, zc=zc, valid=valid, bbox=bbox,
+                             zmin=zmin)
+    with torch.cuda.device(dev):
+        code = _build.load().zk_triangle_setup(
+            clip.data_ptr(), None if two is None else two.data_ptr(),
+            int(bool(two_sided)) if two is None else 0,
+            None if valid_in is None else valid_in.data_ptr(), n,
+            float(width), float(height), int(depth_bias is not None),
+            float(slope_f), float(const_term), edge.data_ptr(),
+            zc.data_ptr(), valid.data_ptr(), bbox.data_ptr(),
+            zmin.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "triangle_setup")
+    triangle_setup.launches += 1
+    return TriangleSetup(edge=edge, zc=zc, valid=valid, bbox=bbox, zmin=zmin)
+
+
+triangle_setup.launches = 0
+
+
+def triangle_setup_plain(
+    clip: torch.Tensor,
+    width: int,
+    height: int,
+    two_sided=False,
+    valid_mask: Optional[torch.Tensor] = None,
+    depth_bias: Optional[tuple] = None,
+) -> TriangleSetup:
+    """Build edge/depth coefficients from clip-space triangle vertices
+    (plain PyTorch version of kernel ``triangle_setup``, any device).
 
     Args:
       clip: (T, 3, 4) clip-space positions (x, y, z, w), Vulkan conventions
@@ -105,19 +180,19 @@ def triangle_setup(
     # were rendered): each 2x2 minor a*b - c*d as fma(a, b, -(c*d)), the
     # determinant as fma(x2, ., fma(x0, ., x1 * .)). Near-degenerate
     # triangles (the shadow pass is full of them) amplify the one-rounding
-    # difference. All nine minors go through one fma.
+    # difference.
     def nxt(t, k):  # vertex i + k of row i
         return torch.roll(t, -k, dims=-1)
 
     xa, xb = nxt(xp, 1), nxt(xp, 2)
     ya, yb = nxt(yp, 1), nxt(yp, 2)
     wa, wb = nxt(w, 1), nxt(w, 2)
-    adj = fma_f32(torch.stack([ya, xb, xa], -1),
-                  torch.stack([wb, wa, yb], -1),
-                  -(torch.stack([yb, xa, xb], -1)
-                    * torch.stack([wa, wb, ya], -1)))  # (T, 3, 3)
-    det = fma_f32(x2, adj[..., 2, 0],
-                  fma_f32(x0, adj[..., 0, 0], x1 * adj[..., 1, 0]))
+    adj = fma_f32_plain(torch.stack([ya, xb, xa], -1),
+                        torch.stack([wb, wa, yb], -1),
+                        -(torch.stack([yb, xa, xb], -1)
+                          * torch.stack([wa, wb, ya], -1)))  # (T, 3, 3)
+    det = fma_f32_plain(x2, adj[..., 2, 0],
+                        fma_f32_plain(x0, adj[..., 0, 0], x1 * adj[..., 1, 0]))
 
     # Orientation: Vulkan front face is COUNTER_CLOCKWISE in y-down
     # framebuffer coords (ZeldaEngine.cpp:5118), which in this matrix
@@ -158,13 +233,14 @@ def triangle_setup(
         # (fma(z, 1/det, bias/det * w)).
         zrow = zc[..., 0, None] * edge[..., 0, :]
         for i in (1, 2):
-            zrow = fma_f32(zc[..., i, None], edge[..., i, :], zrow)
+            zrow = fma_f32_plain(zc[..., i, None], edge[..., i, :], zrow)
         slope = torch.maximum(torch.abs(zrow[..., 0]), torch.abs(zrow[..., 1]))
-        bias = fma_f32(slope, slope_f, const_f * 1.1920929e-7)
+        bias = fma_f32_plain(slope, slope_f, const_f * 1.1920929e-7)
         # Add a constant to the interpolated depth: with the scaled edges,
         # sum(u_i * w_i) = det_scaled, so zc_i += bias * w_i / det_scaled
         # shifts depth(p) by exactly bias.
-        zc = fma_f32(z, inv_det[..., None], (bias / safe_det)[..., None] * w)
+        zc = fma_f32_plain(z, inv_det[..., None],
+                           (bias / safe_det)[..., None] * w)
 
     # Conservative screen bbox of the visible region. If any w is near/behind
     # zero the projection is unbounded -> full screen.
@@ -195,6 +271,9 @@ def triangle_setup(
     z_over_w = z / w_safe
     zmin = torch.where(w_ok, torch.amin(z_over_w, dim=-1), zero)
     zmin = torch.clamp(zmin, 0.0, 1.0)
+    # A zero bound is +0.0, as the JAX package's clip leaves it: a vertex
+    # depth of -0.0 would keep its sign through amin and clamp here.
+    zmin = torch.where(zmin == 0.0, 0.0, zmin)
 
     return TriangleSetup(edge=edge, zc=zc, valid=keep, bbox=bbox, zmin=zmin)
 
