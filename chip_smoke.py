@@ -26,7 +26,10 @@ reflection, every ablation flag); and row bands (phase ``bands``: config
 3's frame striped over four and eight bands and in four contiguous bands,
 and config 5's world in four contiguous bands, through
 ``parallel/tiles.py`` on one card, each against the full frame; every
-K1 / K2 band call replayed). Every kernel is replayed on the inputs a
+K1 / K2 band call replayed); and the JAX package's raster values (phase
+``rasters``: config 3 at "pallas" and "fused", config 1 at "pallas" and
+config 5's world at "jnp", each against its "auto" frame; every K1 and
+fma call of those frames replayed). Every kernel is replayed on the inputs a
 frame gave it and held against its plain PyTorch version on the card, and timed as
 device time (its calls replayed from a CUDA graph, ``ms``) and as events around
 eager calls (``eager_ms``, which includes the host's cost per call where that
@@ -195,6 +198,19 @@ BAND_CASES = (("config3_striped_4", "config3", 4, True),
               ("config3_striped_8", "config3", 8, True),
               ("config3_contiguous_4", "config3", 4, False),
               ("config5_contiguous_4", "config5", 4, False))
+# Phase rasters: the JAX package's raster values. "pallas" rasterizes the
+# GBuffer (and forward) pass through K1 with ids instead of K2, and
+# resolves it through the gather path, whose multiply-adds are 11 launches
+# of kernel fma a pass (the edge values 1, the quotient rule 2, the corner
+# mix 6, the uv footprint 2); "jnp" rasterizes every pass brute force (no
+# K1, no K2) before the same gather path; "fused" is the "auto" route.
+GATHER_FMA = 11
+PALLAS_PATH = dict(MAIN_PATH, pair_raster=2, pair_raster_fused=0,
+                   fma=MAIN_PATH["fma"] + GATHER_FMA)
+PALLAS_FORWARD_PATH = dict(FORWARD_PATH, pair_raster=1, pair_raster_fused=0,
+                           fma=FORWARD_PATH["fma"] + GATHER_FMA)
+JNP_PATH = dict(MAIN_PATH, pair_raster=0, pair_raster_fused=0,
+                fma=MAIN_PATH["fma"] + GATHER_FMA)
 # The PCF backends without a kernel (plain PyTorch on the card), one
 # config-3 frame each against the exact filter; all but half_y4 are exact.
 PCF_PLAIN_BACKENDS = ("packed_y4", "packed_y8", "packed4", "packed8",
@@ -320,14 +336,19 @@ def golden(got: torch.Tensor, want: torch.Tensor) -> dict:
 # ------------------------------------------------------------------ phases
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
 def phase_device() -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device: "
                            "torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_line()
     nvcc = subprocess.run([_build._nvcc(), "--version"],
                           capture_output=True, text=True, check=True).stdout
     info = dict(
@@ -351,12 +372,13 @@ def phase_build() -> None:
 
 @contextlib.contextmanager
 def recorded_calls(calls: dict):
-    """While active, every call a frame makes to a kernel's wrapper or to
-    ``build_pairs`` is noted in ``calls`` (references, not copies) and
-    passed on unchanged: ``calls[kernel] = (args, kwargs)`` of the last
-    call without the ``backend`` keyword, ``calls["all:" + kernel]`` every
-    call in order, ``calls["build_pairs"] = [(setup, pairs), ...]`` in call
-    order (shadow pass first, GBuffer second)."""
+    """While active, every call a frame makes to a kernel's wrapper, to
+    ``build_pairs`` or to the gather path ``surface_attributes`` is noted in
+    ``calls`` (references, not copies) and passed on unchanged:
+    ``calls[kernel] = (args, kwargs)`` of the last call without the
+    ``backend`` keyword, ``calls["all:" + kernel]`` every call in order,
+    ``calls["build_pairs"] = [(setup, pairs), ...]`` in call order (shadow
+    pass first, GBuffer second)."""
     saved = []
 
     def shim(module, name, key):
@@ -376,6 +398,7 @@ def recorded_calls(calls: dict):
         setattr(module, name, call)
 
     shim(frame_graph, "build_pairs", "build_pairs")
+    shim(frame_graph, "surface_attributes", "surface_attributes")
     for key, (module, name) in FRAME_CALLS.items():
         shim(module, name, key)
     # fma_f32 is called by name from its own module.
@@ -2796,6 +2819,208 @@ def phase_bands(scene, meta, world, config):
     return kernel_extra
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal tensors, float values compared as their bits."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def phase_rasters(scene, meta, world, config):
+    """The JAX package's raster values through ``render_frame`` on the
+    card, each frame beside its "auto" frame in this call: config 3 at
+    1080p at "pallas" (K1 with ids for the GBuffer pass, then the gather
+    path ``surface_attributes``) and at "fused" (the "auto" route); config
+    1 at "pallas" (the forward pass through K1 with ids and the far plane
+    as initial depth); config 5's world at 512x512 at "jnp" (every pass
+    brute force, then the gather path). Each value: launches checked per
+    frame, frame_ms (median of 8 after 2 warm-up), host_frame_ms, device
+    busy ms and launches (torch.profiler, one frame) and peak MB. Checks:
+    every K1 call of the "pallas" frames bit for bit with its plain
+    version (ids included); "pallas" shadow map, depths and ids equal to
+    "auto"'s and its image within the golden criterion; the "fused" frame
+    equal to "auto"'s; the "jnp" image within the golden criterion of
+    "auto"'s and its depths equal but at sliver texels, which only the
+    brute force covers (outside the pair's bbox: nearer, ROADMAP.md §C).
+    Also the device time of ``surface_attributes`` on the 1080p GBuffer.
+    Returns (launches per frame of each path, K1's row additions)."""
+    path_launches, stats = {}, {}
+
+    def frames(name, sc, me, wo, cfg, want, warm=2, timed=8):
+        torch.cuda.reset_peak_memory_stats()
+        frame_ms, host_ms, _image, _aux, launches = timed_frames(
+            sc, me, wo, cfg, warm, timed)
+        check_launches(launches, {k: v * (warm + timed)
+                                  for k, v in want.items()},
+                       f"rasters {name}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        busy = phase_profile(sc, me, wo, cfg, phase=f"profile_rasters_{name}")
+        path_launches[name] = {k: v / (warm + timed)
+                               for k, v in launches.items()}
+        stats[name] = dict(raster=cfg.raster,
+                           frame_ms=statistics.median(frame_ms),
+                           host_frame_ms=statistics.median(host_ms),
+                           device_busy_ms=busy["device_busy_ms"],
+                           device_launches=busy["device_launches"],
+                           peak_memory_mb=peak,
+                           launches_per_frame=path_launches[name])
+
+    def noted(sc, me, view, cfg):
+        with recorded_calls({}) as calls:
+            image, aux = render_frame(sc, view, me, cfg)
+        torch.cuda.synchronize()
+        return calls, image, aux
+
+    def k1_replays(calls, what):
+        """Every K1 call of a frame against its plain version."""
+        out = []
+        for args, kw in calls["all:pair_raster"]:
+            res = compare_raster(
+                rc.rasterize_pairs(*args, backend="cuda", **kw),
+                rc.rasterize_pairs(*args, backend="torch", **kw), False)
+            out.append(dict(res, what=what,
+                            ids=not kw.get("depth_only", False),
+                            init_depth=kw.get("init_depth") is not None))
+        return out
+
+    fma_checks = []
+
+    def fma_replays(calls, what, want):
+        """Every kernel fma call of a frame (the gather path's among them)
+        against its plain version, as bits."""
+        errs = []
+        for a, kw in calls["all:fma"]:
+            k = transforms.fma_f32(*a, backend="cuda", **kw)
+            p = transforms.fma_f32(*a, backend="torch", **kw)
+            check(same_bits(k, p), f"{what}: fma not bit for bit")
+            errs.append(float((k - p).abs().max()))
+        check(len(errs) == want, f"{what}: fma called {len(errs)} times")
+        fma_checks.append(dict(what=what, calls=len(errs),
+                               max_abs_err=max(errs)))
+
+    # ---- config 3 at 1080p: "auto", "pallas", "fused".
+    c3 = {r: config.replace(raster=r) for r in ("auto", "pallas", "fused")}
+    frames("config3_auto", scene, meta, world, c3["auto"], MAIN_PATH)
+    frames("config3_pallas", scene, meta, world, c3["pallas"], PALLAS_PATH)
+    frames("config3_fused", scene, meta, world, c3["fused"], MAIN_PATH)
+    view = build_view_state(world, config, time=0.5, roll_light=0.6)
+    n3 = {r: noted(scene, meta, view, c) for r, c in c3.items()}
+    calls_p, img_p, aux_p = n3["pallas"]
+    _, img_a, aux_a = n3["auto"]
+    _, img_f, aux_f = n3["fused"]
+    k1 = k1_replays(calls_p, "config 3 pallas")
+    fma_replays(calls_p, "config 3 pallas", PALLAS_PATH["fma"])
+    check([c["ids"] for c in k1] == [False, True],
+          f"config 3 pallas: K1 calls {[c['ids'] for c in k1]}, expected "
+          "the shadow map depth only and the GBuffer with ids")
+    for key in ("shadowmap", "gbuffer_depth", "tri_id", "depth"):
+        check(same_bits(aux_p[key], aux_a[key]),
+              f"config 3: pallas {key} differs from auto's at "
+              f"{int((aux_p[key] != aux_a[key]).sum())} pixels")
+        check(same_bits(aux_f[key], aux_a[key]),
+              f"config 3: fused {key} differs from auto's")
+    check(same_bits(img_f, img_a), "config 3: the fused image differs "
+          f"from auto's at {int((img_f != img_a).sum())} values")
+    covered, sky, _sf = check_image(img_p, aux_p)
+    pallas_vs_auto = dict(golden(img_p, img_a),
+                          values_off=int((img_p != img_a).sum()),
+                          values=img_p.numel())
+    # The gather path on the 1080p GBuffer: device time and launches.
+    gargs, gkw = calls_p["surface_attributes"]
+    gather = lambda: frame_graph.surface_attributes(  # noqa: E731
+        *gargs, **gkw)
+    g_busy = device_profile(gather, "profile_rasters_surface_attributes")
+    g_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    h, w = gargs[2].shape
+    surface = dict(device_busy_ms=g_busy["device_busy_ms"],
+                   device_launches=g_busy["device_launches"],
+                   eager_ms=cuda_ms(gather, 3), peak_memory_mb=g_peak,
+                   gather_mb=h * w * 43 * 4 / 2 ** 20, pixels=h * w)
+    # K1 with ids on the GBuffer pass: device time and bound.
+    args, kw = calls_p["all:pair_raster"][1]
+    setup_gb, pairs_gb = calls_p["build_pairs"][1]
+    check(pairs_gb.records is args[0].records,
+          "config 3 pallas: K1's GBuffer pairs are not build_pairs' second")
+    call = lambda: rc.rasterize_pairs(  # noqa: E731
+        *args, backend="cuda", **kw)
+    k1_gbuffer = dict(ms=graph_ms(call, 10), plain_ms=cuda_ms(
+        lambda: rc.rasterize_pairs(*args, backend="torch", **kw), 1),
+        **raster_bound(pairs_gb, setup_gb, args[1], args[2], kw, 2,
+                       walk=strip_walk_load(pairs_gb, args[1], args[2], kw,
+                                            split=True),
+                       path="rasters: config 3 pallas GBuffer, ids"))
+    del n3, calls_p, gargs, gkw, gather, args, kw, call
+
+    # ---- config 1 at "pallas": the forward pass through K1 with ids.
+    c1 = config1()
+    s1, m1, w1 = forward_scene(c1)
+    frames("config1_auto", s1, m1, w1, c1, FORWARD_PATH)
+    frames("config1_pallas", s1, m1, w1, c1.replace(raster="pallas"),
+           PALLAS_FORWARD_PATH)
+    v1 = build_view_state(w1, c1, time=0.5, roll_light=0.6)
+    calls1, img1_p, aux1_p = noted(s1, m1, v1, c1.replace(raster="pallas"))
+    _, img1_a, aux1_a = noted(s1, m1, v1, c1)
+    k1 += k1_replays(calls1, "config 1 pallas")
+    fma_replays(calls1, "config 1 pallas", PALLAS_FORWARD_PATH["fma"])
+    check([(c["ids"], c["init_depth"]) for c in k1[2:]] == [(True, True)],
+          "config 1 pallas: expected one K1 call, with ids and an initial "
+          "depth")
+    init = calls1["all:pair_raster"][0][1]["init_depth"]
+    check(bool((init == 1.0).all()), "config 1: the forward pass's initial "
+          "depth is not the far plane")
+    for key in ("depth", "forward_tri_id"):
+        check(same_bits(aux1_p[key], aux1_a[key]),
+              f"config 1: pallas {key} differs from auto's")
+    forward_vs_auto = dict(golden(img1_p, img1_a),
+                           values_off=int((img1_p != img1_a).sum()))
+    del calls1
+
+    # ---- config 5's world at "jnp" against its "auto" frame.
+    c5, w5 = config5(), config5_world()
+    s5, m5 = build_scene_from_world(w5, c5)
+    frames("config5_auto", s5, m5, w5, c5, MAIN_PATH)
+    frames("config5_jnp", s5, m5, w5, c5.replace(raster="jnp"), JNP_PATH,
+           warm=1)
+    v5 = build_view_state(w5, c5, time=0.5, roll_light=0.6)
+    img5_a, aux5_a = render_frame(s5, v5, m5, c5)
+    calls5, img5_j, aux5_j = noted(s5, m5, v5, c5.replace(raster="jnp"))
+    fma_replays(calls5, "config 5 jnp", JNP_PATH["fma"])
+    del calls5
+    slivers = {}
+    for key in ("shadowmap", "gbuffer_depth"):
+        off = aux5_j[key] != aux5_a[key]
+        check(bool((aux5_j[key][off] < aux5_a[key][off]).all()),
+              f"config 5 jnp: a {key} texel off the pair raster's is not "
+              "nearer (only a sliver outside its bbox may be)")
+        slivers[key] = int(off.sum())
+    same_depth = aux5_j["gbuffer_depth"] == aux5_a["gbuffer_depth"]
+    jnp_vs_auto = dict(golden(img5_j, img5_a),
+                       values_off=int((img5_j != img5_a).sum()),
+                       sliver_texels=slivers,
+                       id_mismatches_at_equal_depth=int(
+                           ((aux5_j["tri_id"] != aux5_a["tri_id"])
+                            & same_depth).sum()),
+                       live_pairs_jnp=list(aux5_j["live_pairs"]),
+                       pair_overflow_jnp=int(aux5_j["pair_overflow"]))
+    check(not aux5_j["live_pairs"] and int(aux5_j["pair_overflow"]) == 0,
+          "config 5 jnp: a pass binned pairs")
+    emit("rasters", card=card_line(), values=stats, k1_replays=k1,
+         config3_pallas_vs_auto=pallas_vs_auto,
+         config3_covered_fraction=covered, config3_sky_fraction=sky,
+         config1_pallas_vs_auto=forward_vs_auto,
+         config5_jnp_vs_auto=jnp_vs_auto, surface_attributes=surface,
+         k1_gbuffer_ids=k1_gbuffer, fma_replays=fma_checks)
+    pallas_launches = {
+        p: path_launches[p]["pair_raster"]
+        for p in ("config3_pallas", "config1_pallas")}
+    return path_launches, {
+        "pair_raster": dict(
+            launches_per_frame_pallas=pallas_launches,
+            pallas_gbuffer_ids=k1_gbuffer,
+            max_abs_err_pallas=max(c["max_abs_err"] for c in k1)),
+        "fma": dict(rasters_replays=fma_checks)}
+
+
 def device_profile(fn, phase: str) -> dict:
     """Where one call of ``fn`` (ending in a synchronise) spends device
     time: the ten device operations with the largest summed time
@@ -3008,11 +3233,15 @@ def main() -> None:
     noted, counts, n, options_extra = timed("options", phase_options)
     paths["options"], path_launches["options"] = noted, per_frame(counts, n)
     bands_extra = timed("bands", phase_bands, scene, meta, world, config)
+    rasters_launches, rasters_extra = timed("rasters", phase_rasters, scene,
+                                            meta, world, config)
+    path_launches.update(rasters_launches)
     rows = timed("kernels", phase_kernels, captured, launches, paths,
                  path_launches)
     for row in rows:
         row.update(options_extra.get(row["name"], {}))
         row.update(bands_extra.get(row["name"], {}))
+        row.update(rasters_extra.get(row["name"], {}))
     check(not FAILURES, "; ".join(FAILURES))
     timed("frame_vs_plain", phase_frame_vs_plain)
     timed("engine", phase_engine)

@@ -117,6 +117,6 @@ def test_bad_raster_value_and_cuda_on_cpu_raise():
                                           device="cpu")
     view = build_view_state(world, cfg, device="cpu")
     with pytest.raises(ValueError, match="raster"):
-        render_frame(scene, view, meta, cfg.replace(raster="pallas"))
+        render_frame(scene, view, meta, cfg.replace(raster="no_such_raster"))
     with pytest.raises(RuntimeError, match="card"):
         render_frame(scene, view, meta, cfg.replace(raster="cuda"))

@@ -130,8 +130,12 @@ class EngineConfig:
     subpixel_cull: bool = False
     # "auto": CUDA kernels for tensors on the card, plain PyTorch for CPU
     # tensors. "cuda": the kernels (raises for CPU tensors). "torch": the
-    # plain PyTorch versions on whatever device the tensors are on.
-    raster: str = "auto"  # "auto" | "cuda" | "torch"
+    # plain PyTorch versions on whatever device the tensors are on. The
+    # JAX package's values pick the raster route, the kernels as "auto":
+    # "fused" the fused kernel's planes (the "auto" route), "pallas" the
+    # pair kernel with ids + the gather path, "jnp" the brute-force raster
+    # + the gather path (passes/frame.py::raster_route).
+    raster: str = "auto"
     sub_rows: int = 8
     # Front-to-back pair ordering (build_pairs sort_z). Only exact-depth
     # ties between different triangles can change winner.

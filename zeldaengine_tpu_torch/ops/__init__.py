@@ -1,3 +1,5 @@
+# rasterize_visibility / rasterize_depth: the brute-force raster, the
+# frame's route under raster="jnp" and the yardstick of the pair raster.
 from zeldaengine_tpu_torch.ops.rasterize import (
     TriangleSetup,
     triangle_setup,

@@ -23,7 +23,9 @@ sum(c_i w_i) = 1). We use u = adj(M) @ p = det * c, normalized per triangle.
 on the card it is one launch of kernel ``triangle_setup``
 (``csrc/triangle_setup.cu``), elsewhere its plain version
 ``triangle_setup_plain``. The chunked brute-force rasterizers here are the
-slow, obviously-right version the pair path is checked against.
+slow, obviously-right version the pair path is checked against, and the
+frame's raster route under ``raster="jnp"`` (the JAX package's jnp
+raster: ``passes/frame.py::raster_route``), plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -320,7 +322,8 @@ def rasterize_visibility(
     init_depth: Optional[torch.Tensor] = None,
     y0=0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Rasterize to a visibility buffer (brute force, chunked).
+    """Rasterize to a visibility buffer (brute force, chunked): the
+    GBuffer, forward and dome passes under ``raster="jnp"``.
 
     Returns:
       depth: (H, W) float32 NDC depth; pixels with no coverage hold the
@@ -361,7 +364,8 @@ def rasterize_depth(
     y0=0,
 ) -> torch.Tensor:
     """Depth-only rasterization (the shadowmap pass, XkShadowmapPass
-    ZeldaEngine.cpp:1372/:3239). Returns (H, W) float32, clear = 1.0."""
+    ZeldaEngine.cpp:1372/:3239), brute force: the shadow map under
+    ``raster="jnp"``. Returns (H, W) float32, clear = 1.0."""
     dev = setup.edge.device
     n_tris = setup.edge.shape[0]
     px, py = _pixel_grid(height, width, y0=y0, device=dev)

@@ -39,8 +39,16 @@ JAX package). ``render_rows`` also renders a row band of the frame
 (``y0``, ``rows``, ``full_frame=False``; the shadow map as a band of its
 own rows, gathered by the caller), the multi-device path of
 ``parallel/tiles.py``: K1/K2 rasterize the tile rows that hold the band
-(``y0_tiles``) and the band is cropped out of them. Nothing is silently
-served by another path: an unknown backend name raises.
+(``y0_tiles``) and the band is cropped out of them. ``config.raster``
+takes the port's names ("auto", "cuda", "torch") and the JAX package's
+raster values: "fused" is the default route above, "pallas" rasterizes
+the GBuffer and forward passes through ``pair_raster`` with ids and
+resolves their attributes through the gather path
+(``passes/gbuffer.py::surface_attributes``), "jnp" rasterizes every pass
+brute force (``ops/rasterize.py``) before the same gather path
+(``raster_route``); the other kernels follow the tensors' device under
+them (``kernel_backend``). Nothing is silently served by another path:
+an unknown backend name raises.
 
 Every op is issued on the current CUDA stream in order: the stream is the
 dependency graph.
@@ -69,6 +77,8 @@ from zeldaengine_tpu_torch.ops.envtap import sample_env_merged
 from zeldaengine_tpu_torch.ops.rasterize import (
     _pixel_grid,
     interpolation_coeffs,
+    rasterize_depth,
+    rasterize_visibility,
     triangle_setup,
 )
 from zeldaengine_tpu_torch.ops.rasterize_cuda import (
@@ -97,15 +107,39 @@ from zeldaengine_tpu_torch.passes.gbuffer import (
     GBuffer,
     SurfaceAttributes,
     pack_gbuffer,
+    surface_attributes,
     surface_attributes_from_planes,
 )
 from zeldaengine_tpu_torch.scene.scenebuild import GpuScene, SceneMeta
 
-_RASTER_BACKENDS = ("auto", "cuda", "torch")
+# The port's own names ("auto", "cuda", "torch") and the JAX package's
+# raster values ("pallas", "fused", "jnp"; "auto" is both).
+_RASTER_BACKENDS = ("auto", "cuda", "torch", "pallas", "fused", "jnp")
 _PCF_BACKENDS = ("auto", "vmem", "exact", "packed", "packed_b",
                  "packed_roll", "window_roll", "half", "half_nearest",
                  "half_wr", "half_y4", "pallas", "packed_y4", "packed_y8",
                  "packed4", "packed8", "packed16", "window1")
+
+
+def kernel_backend(config: EngineConfig) -> str:
+    """The ``backend`` the frame passes to every kernel wrapper: the port's
+    "cuda" (the kernel, or raise) and "torch" (the plain version) pass
+    through; the JAX package's raster values pick the raster route only,
+    and under them, as under "auto", each wrapper follows its tensors'
+    device (the kernel on the card, the plain version on the CPU)."""
+    return config.raster if config.raster in ("cuda", "torch") else "auto"
+
+
+def raster_route(config: EngineConfig) -> str:
+    """How the GBuffer and forward passes find their visible surface:
+    "planes" (kernel ``pair_raster_fused``'s attribute planes, resolved by
+    ``surface_attributes_from_planes``: "auto", "cuda", "torch" and the
+    JAX package's "fused", at every ``tile_w``), "ids" (kernel
+    ``pair_raster`` with ids, then the gather path ``surface_attributes``:
+    "pallas") or "brute" (the brute-force ``rasterize_visibility``, no
+    compaction or pair stream, then the gather path: "jnp"; the shadow map
+    through ``rasterize_depth`` and the dome mesh brute force too)."""
+    return {"pallas": "ids", "jnp": "brute"}.get(config.raster, "planes")
 
 
 def point_light_route(view, config: EngineConfig):
@@ -145,7 +179,8 @@ def cull_lights(view, config: EngineConfig, route, attrs, y0: int = 0):
         y0=y0, vp_h=config.height, world_pos=attrs.world_pos,
         covered=attrs.covered)
     if route == "kernel":
-        return None, (tile_idx, tile_cnt, tile_h, config.raster), drops
+        return None, (tile_idx, tile_cnt, tile_h,
+                      kernel_backend(config)), drops
     return (tile_idx, tile_cnt, tile_h, tile_w), None, drops
 
 
@@ -292,9 +327,27 @@ def _raster_vis(setup, height, width, config: EngineConfig, init_depth=None,
         pairs, ph, pw, init_depth=init_depth, tile_h=config.tile_h,
         tile_w=config.tile_w, sub_rows=config.sub_rows,
         y_row=(12 + has_z) if ysr else -1, y0_tiles=y0_tiles,
-        backend=config.raster, **_early_out_kw(config, 12 if has_z else -1))
+        backend=kernel_backend(config),
+        **_early_out_kw(config, 12 if has_z else -1))
     rows = slice(off, off + height)
     return depth[rows, :width], tid[rows, :width], pairs, covf
+
+
+def _raster_visibility(setup, height, width, config: EngineConfig,
+                       init_depth=None, y0: int = 0):
+    """Depth and triangle ids of a pass without attribute planes, through
+    the raster route: ``_raster_vis`` (kernel ``pair_raster`` with ids)
+    or, under "brute", ``rasterize_visibility`` over every triangle (no
+    compaction, no pair stream: None and 0 for them, as the JAX package's
+    jnp raster adds no overflow). Returns (depth, tid, the pair stream,
+    live triangles the compaction cap dropped)."""
+    if raster_route(config) == "brute":
+        depth, tid = rasterize_visibility(
+            setup, height, width, chunk=config.tri_chunk,
+            init_depth=init_depth, y0=y0)
+        return depth, tid, None, 0
+    return _raster_vis(setup, height, width, config, init_depth=init_depth,
+                       y0=y0)
 
 
 def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
@@ -349,10 +402,40 @@ def _raster_vis_fused(setup, extra, height, width, config: EngineConfig,
                            (0, pw - width, off, ph - off - height),
                            value=1.0)
     depth, tid, planes = rasterize_pairs_fused(
-        pairs, ph, pw, init_depth=init_depth, backend=config.raster, **kw)
+        pairs, ph, pw, init_depth=init_depth, backend=kernel_backend(config),
+        **kw)
     rows = slice(off, off + height)
     return (depth[rows, :width], tid[rows, :width],
             planes[:, rows, :width], pairs, covf)
+
+
+def _visible_surface(scene, meta, config: EngineConfig, setup, world,
+                     n_world, height, width, y0: int, init_depth=None):
+    """The GBuffer or forward pass's visible surface through the raster
+    route (``raster_route``): (depth, tid, SurfaceAttributes, the pair
+    stream or None, live triangles the compaction cap dropped). "planes":
+    kernel ``pair_raster_fused`` and its attribute planes; "ids" / "brute":
+    the visibility buffer of ``_raster_visibility``, then the gather path
+    ``surface_attributes``. ``init_depth``: the forward pass's GBuffer
+    depth."""
+    if raster_route(config) != "planes":
+        depth, tid, pairs, covf = _raster_visibility(
+            setup, height, width, config, init_depth=init_depth, y0=y0)
+        attrs = surface_attributes(
+            scene, setup, tid, world, n_world, config, y0=y0,
+            var_ch=meta.tex_channels, flat_normal=meta.flat_normal)
+        return depth, tid, attrs, pairs, covf
+    f_uv, f_combo, _ = _fused_flags(meta)
+    n_t = setup.edge.shape[0]
+    depth, tid, planes, pairs, covf = _raster_vis_fused(
+        setup,
+        lambda cidx: _fused_extra(scene, n_t, world, n_world, tri_idx=cidx,
+                                  need_uv=f_uv, need_combo=f_combo),
+        height, width, config, meta=meta, init_depth=init_depth, y0=y0)
+    attrs = surface_attributes_from_planes(
+        scene, planes, config, var_ch=meta.tex_channels,
+        flat_normal=meta.flat_normal)
+    return depth, tid, attrs, pairs, covf
 
 
 def _apply_wireframe(attrs: SurfaceAttributes, depth, tid,
@@ -380,7 +463,12 @@ def _raster_depth(setup, dim, config: EngineConfig, y0: int = 0,
     their own cap (``config.compact_tris_shadow``): they are not the
     camera-culled set. The pass keeps no ids, so ``pair_tri`` stays in
     compacted rows, as in the JAX package. ``y0`` / ``rows``: the band of
-    map rows [y0, y0 + rows) (``_band_tiles``)."""
+    map rows [y0, y0 + rows) (``_band_tiles``). Under the "brute" route
+    (``raster_route``) the map is ``rasterize_depth``'s, with no pair
+    stream (None) and no compaction (0), as the JAX package's jnp raster."""
+    if raster_route(config) == "brute":
+        return rasterize_depth(setup, dim if rows is None else rows, dim,
+                               chunk=config.tri_chunk, y0=y0), None, 0
     s_th = config.shadow_tile_h or config.tile_h
     s_tw = config.shadow_tile_w or config.tile_w
     height = dim if rows is None else rows
@@ -404,7 +492,8 @@ def _raster_depth(setup, dim, config: EngineConfig, y0: int = 0,
     kw = dict(tile_h=s_th, tile_w=s_tw, sub_rows=config.sub_rows,
               depth_only=True, y_row=(12 + has_z) if ysr else -1,
               y0_tiles=y0_tiles, **_early_out_kw(config, 12 if has_z else -1))
-    depth = rasterize_pairs(pairs, ph, pw, backend=config.raster, **kw)
+    depth = rasterize_pairs(pairs, ph, pw, backend=kernel_backend(config),
+                            **kw)
     return depth[off:off + height, :dim], pairs, covf
 
 
@@ -447,22 +536,23 @@ def _shadow_factor(shadowmap, world_pos, view, config: EngineConfig,
             upsample="nearest" if backend == "half_nearest" else "linear",
             inner={"half_wr": "window_roll",
                    "half_y4": "packed_y"}.get(backend, "packed"),
-            backend=config.raster)
+            backend=kernel_backend(config))
     if backend == "window1":
         return compute_pcf_window1(shadowmap, sc, **kw)
     if backend == "window_roll" and dim_ok:
         return compute_pcf_window_roll(shadowmap, sc, **kw,
-                                       backend=config.raster)
+                                       backend=kernel_backend(config))
     if backend == "packed_roll" and dim_ok:
         return compute_pcf_packed_roll(shadowmap, sc, **kw,
-                                       backend=config.raster)
+                                       backend=kernel_backend(config))
     if backend in ("auto", "vmem") and sc.ndim == 3:
         # The tap kernel: equal to compute_pcf at every in-range pixel.
         # Uncovered pixels (whose world_pos is the GBuffer default,
         # overwritten by sky downstream) read 1.0.
         sc = sc.contiguous()
         sf, _overflow = compute_pcf_vmem(shadowmap, sc, active=valid,
-                                         backend=config.raster, **kw)
+                                         backend=kernel_backend(config),
+                                         **kw)
         if valid is not None:
             sf = torch.where(valid, sf, torch.ones_like(sf))
         return sf
@@ -477,7 +567,7 @@ def _shadow_factor(shadowmap, world_pos, view, config: EngineConfig,
         return compute_pcf_pallas(
             shadowmap, sc.contiguous(), **kw, tile_h=config.tile_h,
             tile_w=config.tile_w, win=config.pcf_window, valid=valid,
-            backend=config.raster)
+            backend=kernel_backend(config))
     return compute_pcf(shadowmap, sc, **kw)
 
 
@@ -760,7 +850,7 @@ def _skydome_analytic(scene, view, depth, color, height, width,
     sky_mask = hit & (sky_depth < depth)
     args = (scene.sky_planes, uv.contiguous(), sky_mask,
             config.background_size)
-    tap, _ovf = sample_base_window(*args, backend=config.raster)
+    tap, _ovf = sample_base_window(*args, backend=kernel_backend(config))
     sky_rgb = gamma_correct(tap[..., :3])
     color = torch.where(sky_mask[..., None], sky_rgb, color)
     depth = torch.where(sky_mask, sky_depth, depth)
@@ -771,17 +861,18 @@ def _skydome_mesh(scene, view, depth, color, height, width,
                   config: EngineConfig, y0: int = 0):
     """The skydome as rasterized geometry (the reference's own path: the
     dome mesh, ZeldaEngine.cpp:3682-3691): its triangles, two-sided,
-    through kernel ``pair_raster`` with ids and the frame's depth as the
-    initial depth (LESS_OR_EQUAL against it), then the winner's
-    interpolated uv and one mip-0 tap of the equirect. Returns (color,
-    depth, the dome's pair stream, live triangles the compaction cap
-    dropped). ``y0``: the row band of ``_raster_vis``."""
+    through kernel ``pair_raster`` with ids (``rasterize_visibility``
+    under the "brute" route) and the frame's depth as the initial depth
+    (LESS_OR_EQUAL against it), then the winner's interpolated uv and one
+    mip-0 tap of the equirect. Returns (color, depth, the dome's pair
+    stream or None, live triangles the compaction cap dropped). ``y0``:
+    the row band of ``_raster_vis``."""
     sky_world = apply_mat4_point(view.model, scene.sky_pos)
     sky_clip = apply_mat4_h(view.view_proj, sky_world)
     sky_tri = scene.sky_tri.long()
     setup_sky = triangle_setup(sky_clip[sky_tri], width, config.height,
                                two_sided=True)
-    depth_sky, tid_sky, pairs, covf = _raster_vis(
+    depth_sky, tid_sky, pairs, covf = _raster_visibility(
         setup_sky, height, width, config, init_depth=depth, y0=y0)
     sky_mask = tid_sky >= 0
     bary, _ = interpolation_coeffs(setup_sky, tid_sky, height, width, y0=y0)
@@ -821,7 +912,7 @@ def _background(scene, depth, color, height, width, config: EngineConfig,
     bg_mask = depth >= 1.0
     tap, _ovf = sample_base_window(scene.bg_planes, uv, bg_mask,
                                    config.background_size,
-                                   backend=config.raster)
+                                   backend=kernel_backend(config))
     bg_rgb = gamma_correct(tap[..., :3])
     return torch.where(bg_mask[..., None], bg_rgb, color)
 
@@ -1002,14 +1093,20 @@ def render_rows(
     # in the JAX package.
     compact_overflow = 0
 
-    def dropped(pairs, covf):
+    live_pairs = {}
+
+    def dropped(name, pairs, covf):
+        """Count a raster pass's drops; a pass without a pair stream (the
+        "brute" route) drops nothing and has no live pair count."""
         nonlocal pair_overflow, compact_overflow
+        if pairs is None:
+            return
         pair_overflow = pair_overflow + pairs.overflow
         if isinstance(covf, torch.Tensor):
             pair_overflow = pair_overflow + covf
             compact_overflow = compact_overflow + covf
+        live_pairs[name] = pairs.gbounds[1]
 
-    live_pairs = {}
     # ---- 1. shadowmap pass (two-sided: cull disabled for Shadow pipelines)
     if shadowmap_override is not None:
         shadowmap = shadowmap_override.to(torch.float32).contiguous()
@@ -1026,8 +1123,7 @@ def render_rows(
             shadowmap, pairs_sh, covf_sh = _raster_depth(
                 setup_sh, config.shadowmap_dim, config)
         shadowmap = shadowmap.contiguous()
-        dropped(pairs_sh, covf_sh)
-        live_pairs["shadow"] = pairs_sh.gbounds[1]
+        dropped("shadow", pairs_sh, covf_sh)
     else:
         shadowmap = torch.ones(
             (config.shadowmap_dim, config.shadowmap_dim),
@@ -1073,17 +1169,8 @@ def render_rows(
         )
         if band:
             setup = _band_mask_setup(setup, y0, height)
-        f_uv, f_combo, _ = _fused_flags(meta)
-        n_t = setup.edge.shape[0]
-        depth_d, tid_d, planes_d, pairs_d, covf_d = _raster_vis_fused(
-            setup,
-            lambda cidx: _fused_extra(scene, n_t, world, n_world,
-                                      tri_idx=cidx, need_uv=f_uv,
-                                      need_combo=f_combo),
-            height, width, config, meta=meta, y0=y0)
-        attrs_d = surface_attributes_from_planes(
-            scene, planes_d, config, var_ch=meta.tex_channels,
-            flat_normal=meta.flat_normal)
+        depth_d, tid_d, attrs_d, pairs_d, covf_d = _visible_surface(
+            scene, meta, config, setup, world, n_world, height, width, y0)
         if config.wireframe:
             attrs_d, depth_d, tid_d = _apply_wireframe(
                 attrs_d, depth_d, tid_d, config)
@@ -1095,8 +1182,7 @@ def render_rows(
             gbuf, shadowmap, scene, view, config,
             tiled_points=tiled_points, pallas_points=pallas_points,
             env_fetch=env_fetch_of(attrs_d.covered), enable_vis=not band)
-        dropped(pairs_d, covf_d)
-        live_pairs["gbuffer"] = pairs_d.gbounds[1]
+        dropped("gbuffer", pairs_d, covf_d)
     else:
         depth_d = torch.ones((height, width), dtype=torch.float32,
                              device=dev)
@@ -1115,17 +1201,9 @@ def render_rows(
         )
         if band:
             setup_f = _band_mask_setup(setup_f, y0, height)
-        f_uv, f_combo, _ = _fused_flags(meta)
-        n_t = setup_f.edge.shape[0]
-        depth, tid_f, planes_f, pairs_f, covf_f = _raster_vis_fused(
-            setup_f,
-            lambda cidx: _fused_extra(scene, n_t, world, n_world,
-                                      tri_idx=cidx, need_uv=f_uv,
-                                      need_combo=f_combo),
-            height, width, config, meta=meta, init_depth=depth_d, y0=y0)
-        attrs_f = surface_attributes_from_planes(
-            scene, planes_f, config, var_ch=meta.tex_channels,
-            flat_normal=meta.flat_normal)
+        depth, tid_f, attrs_f, pairs_f, covf_f = _visible_surface(
+            scene, meta, config, setup_f, world, n_world, height, width, y0,
+            init_depth=depth_d)
         if config.wireframe:
             attrs_f, depth, tid_f = _apply_wireframe(
                 attrs_f, depth, tid_f, config, fallback_depth=depth_d)
@@ -1135,8 +1213,7 @@ def render_rows(
             tiled_points=tiled_f, pallas_points=pallas_f,
             env_fetch=env_fetch_of(attrs_f.covered))
         color = torch.where((tid_f >= 0)[..., None], fwd_color, color)
-        dropped(pairs_f, covf_f)
-        live_pairs["forward"] = pairs_f.gbounds[1]
+        dropped("forward", pairs_f, covf_f)
     else:
         depth = depth_d
         tid_f = torch.full((height, width), -1, dtype=torch.int32,
@@ -1163,8 +1240,7 @@ def render_rows(
         else:
             color, depth, pairs_sky, covf_sky = _skydome_mesh(
                 scene, view, depth, color, height, width, config, y0)
-            dropped(pairs_sky, covf_sky)
-            live_pairs["skydome"] = pairs_sky.gbounds[1]
+            dropped("skydome", pairs_sky, covf_sky)
 
     # ---- 4d. background (full-screen rect at z = 1, LESS_OR_EQUAL);
     # skipped in the debug views (ZeldaEngine.cpp:3693).
@@ -1187,8 +1263,10 @@ def render_rows(
         # synchronises): live pairs dropped by the max_pairs caps and live
         # triangles dropped by the compaction caps (as in the JAX
         # package's pair_overflow), the latter alone (the int 0 when no
-        # pass compacts), the live pair count
-        # of each raster pass, the deferred shadow factor, point lights
+        # pass compacts), the live pair count of each raster pass that
+        # bins pairs (none under the "brute" route: its passes have no
+        # pair stream and add 0 to both overflows, as the JAX package's
+        # jnp raster does), the deferred shadow factor, point lights
         # dropped by the per-tile cap (the JAX package's validation counter
         # "light_drops").
         "pair_overflow": pair_overflow,

@@ -9,10 +9,13 @@ The deferred GBuffer layout matches BaseScene.frag:43-47 / XkGBuffer
   gbuffer_c:   (H, W, 4) BaseColor.rgb, AO
   gbuffer_d:   (H, W, 4) WorldPos.xyz, 1
 
-The fused raster kernel already produced the interpolants and their
-analytic screen-space derivatives (exact, replacing dFdx/dFdy quads); what
-remains here is the material fetch (per-combo constants plus one mip-pair
-atlas fetch of the spatially varying channels) and the TBN normal mapping.
+Two paths produce the interpolants and their analytic screen-space
+derivatives (exact, replacing dFdx/dFdy quads): the fused raster kernel
+writes them as planes (``surface_attributes_from_planes``), or the gather
+path computes them from a visibility buffer (``surface_attributes``: one
+gather of the winner's record per pixel). What both share is the material
+fetch (per-combo constants plus one mip-pair atlas fetch of the spatially
+varying channels) and the TBN normal mapping.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from zeldaengine_tpu_torch.config import EngineConfig
+from zeldaengine_tpu_torch.math import transforms
 from zeldaengine_tpu_torch.ops import pbr
+from zeldaengine_tpu_torch.ops.rasterize import TriangleSetup, _pixel_grid
 from zeldaengine_tpu_torch.ops.texture import sample_trilinear_packed
 
 
@@ -95,7 +100,7 @@ def _finish_attributes(scene, config, covered, combo, uv, lod, vertex_color,
                        dpos_dy, bary_min=None,
                        var_ch=None,
                        flat_normal: bool = False) -> SurfaceAttributes:
-    """Material fetch + TBN on the interpolants of the fused kernel.
+    """Material fetch + TBN on the interpolants of either path.
     Ablations (diagnostics, ``config.ablate``): "lodprobe" writes the
     tap's inputs (lod / 16, combo / 64, covered) into the base colour,
     "notex" replaces the fetch by constant texels."""
@@ -148,6 +153,102 @@ def _finish_attributes(scene, config, covered, combo, uv, lod, vertex_color,
         mask=mask,
         bary_min=bary_min,
     )
+
+
+def surface_attributes(
+    scene,
+    setup: TriangleSetup,
+    tri_id: torch.Tensor,
+    pair_world: torch.Tensor,
+    pair_normal_world: torch.Tensor,
+    config: EngineConfig,
+    y0: int = 0,
+    var_ch=None,
+    flat_normal: bool = False,
+) -> SurfaceAttributes:
+    """Resolve per-pixel surface attributes from a visibility buffer
+    ``tri_id`` (H, W) of rows of ``setup`` (-1 uncovered), the rows those
+    of the band from viewport row ``y0``: the gather path of the raster
+    routes without attribute planes (``raster`` "pallas" and "jnp").
+
+    One gather per pixel of the winner's 43-float record: its edge
+    coefficients (9), its material id as a float VALUE (rounded back; a
+    bit cast would make ids 1-63 subnormal) and its three corners'
+    interpolants (uv 2, colour 3, world position 3, world normal 3). The
+    multiply-adds are fused where the JAX package's compiled gather path
+    fuses them on the CPU (``transforms.fma_f32``, looked up at each call:
+    a caller may patch it to note the calls): the edge values, the quotient
+    rule and the three-corner mix. Plain PyTorch (and kernel ``fma``) on
+    every device: the JAX package computes this outside any Pallas
+    kernel."""
+    fma_f32 = transforms.fma_f32
+    height, width = tri_id.shape
+    covered = tri_id >= 0
+    tid = torch.clamp_min(tri_id, 0).long()
+    n_t = setup.edge.shape[0]
+    pair_all = torch.cat([scene.pair_static[:, :5], pair_world,
+                          pair_normal_world], dim=1)  # (P, 11)
+    corners = pair_all[scene.tri_vtx[:n_t].long()]  # (T, 3, 11)
+    rec = torch.cat([setup.edge.reshape(n_t, 9),
+                     scene.tri_meta[:n_t, 3:4].to(torch.float32),
+                     corners.reshape(n_t, 33)], dim=1)  # (T, 43)
+    r = rec[tid]  # (H, W, 43)
+    del rec, corners
+    edge = r[..., :9].reshape(height, width, 3, 3)
+    mat_id = torch.round(r[..., 9]).to(torch.int32)
+    corner_px = r[..., 10:43].reshape(height, width, 3, 11)
+
+    px, py = _pixel_grid(height, width, y0=y0, device=tri_id.device)
+    ax = edge[..., 0]
+    ay = edge[..., 1]
+    u = fma_f32(ax, px[..., None], ay * py[..., None]) + edge[..., 2]
+    esum = u[..., 0] + u[..., 1] + u[..., 2]
+    inv = 1.0 / torch.where(torch.abs(esum) > 1e-20, esum,
+                            torch.ones_like(esum))
+    # Uncovered pixels would interpolate record 0 far outside its
+    # triangle: their weights are exact zeros (pack_gbuffer relies on it).
+    inv = torch.where(covered, inv, torch.zeros_like(inv))[..., None]
+    bary = u * inv  # (H, W, 3)
+    del u, esum
+    # d(bary)/dx = (A_x - bary * sum(A_x)) / esum (quotient rule).
+    sax = ax[..., 0:1] + ax[..., 1:2] + ax[..., 2:3]
+    say = ay[..., 0:1] + ay[..., 1:2] + ay[..., 2:3]
+    dbary_dx = fma_f32(-bary, sax, ax) * inv
+    dbary_dy = fma_f32(-bary, say, ay) * inv
+
+    def mix(weights):  # sum over the corners, an fma chain from corner 0
+        w = weights[..., None]
+        return fma_f32(w[..., 2, :], corner_px[..., 2, :], fma_f32(
+            w[..., 1, :], corner_px[..., 1, :],
+            w[..., 0, :] * corner_px[..., 0, :]))
+
+    a_i = mix(bary)
+    a_dx = mix(dbary_dx)
+    a_dy = mix(dbary_dy)
+    # The per-pixel record (~360 MB at 1080p) is no longer needed.
+    del r, edge, ax, ay, corner_px, dbary_dx, dbary_dy
+    duv_dx = a_dx[..., 0:2]
+    duv_dy = a_dy[..., 0:2]
+
+    # Texture lod from the analytic uv footprint (texture() semantics).
+    ts = float(config.texture_size)
+    foot = torch.maximum(
+        fma_f32(duv_dx[..., 1], duv_dx[..., 1],
+                duv_dx[..., 0] * duv_dx[..., 0]),
+        fma_f32(duv_dy[..., 1], duv_dy[..., 1],
+                duv_dy[..., 0] * duv_dy[..., 0]))
+    lod = torch.clamp_min(
+        0.5 * torch.log2(torch.clamp_min(foot * ts * ts, 1e-12)), 0.0)
+
+    combo = scene.mat_combined[mat_id.long()]
+    bary_min = torch.where(covered, torch.amin(bary, dim=-1),
+                           torch.zeros_like(bary[..., 0]))
+    return _finish_attributes(
+        scene, config, covered, combo, uv=a_i[..., 0:2], lod=lod,
+        vertex_color=a_i[..., 2:5], world_pos=a_i[..., 5:8],
+        frag_normal=a_i[..., 8:11], duv_dx=duv_dx, duv_dy=duv_dy,
+        dpos_dx=a_dx[..., 5:8], dpos_dy=a_dy[..., 5:8], bary_min=bary_min,
+        var_ch=var_ch, flat_normal=flat_normal)
 
 
 def surface_attributes_from_planes(

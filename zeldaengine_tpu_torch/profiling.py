@@ -6,9 +6,13 @@ order (vertex + setup, shadow raster, GBuffer raster, attribute resolve,
 PCF, lighting, sky) and times each alone on precomputed device inputs;
 ``full`` is the whole frame for comparison and ``null`` the cost of one
 trivial operation on the device. The stage keys and the conditions under
-which each is present are the JAX package's. The GBuffer raster writes
-the winner's attribute planes (kernel ``pair_raster_fused``), so
-``attrs`` is the resolve of those planes into surface attributes.
+which each is present are the JAX package's. On the planes route
+(``passes/frame.py::raster_route``) the GBuffer raster writes the
+winner's attribute planes (kernel ``pair_raster_fused``), so ``attrs`` is
+the resolve of those planes into surface attributes; under ``raster``
+"pallas" and "jnp", as in the JAX package's profiler, ``raster`` is the
+visibility raster (kernel ``pair_raster`` with ids, or brute force) and
+``attrs`` the gather path ``surface_attributes``.
 
 On the card each stage is timed with CUDA events around one call after a
 warm call, and fenced with ``torch.cuda.synchronize()``; on the CPU the
@@ -32,7 +36,7 @@ from zeldaengine_tpu_torch.ops.lighting import shade_pixels
 from zeldaengine_tpu_torch.ops.rasterize import triangle_setup
 from zeldaengine_tpu_torch.passes import frame as F
 from zeldaengine_tpu_torch.passes.gbuffer import (
-    surface_attributes_from_planes)
+    surface_attributes, surface_attributes_from_planes)
 from zeldaengine_tpu_torch.scene.scenebuild import GpuScene, SceneMeta
 
 
@@ -102,8 +106,15 @@ def profile_passes(
                                config)[0].contiguous()
 
     f_uv, f_combo, _ = F._fused_flags(meta)
+    planes_route = F.raster_route(config) == "planes"
 
     def raster(scene, setup, world, n_world):
+        """(depth, tid, what ``attrs_fn`` resolves: the attribute planes,
+        or the visibility buffer's ids)."""
+        if not planes_route:
+            depth, tid = F._raster_visibility(setup, height, width,
+                                              config)[:2]
+            return depth, tid, tid
         n_t = setup.edge.shape[0]
         return F._raster_vis_fused(
             setup,
@@ -112,9 +123,13 @@ def profile_passes(
                                         need_combo=f_combo),
             height, width, config, meta=meta)[:3]
 
-    def attrs_fn(scene, planes):
+    def attrs_fn(scene, resolved):
+        if not planes_route:
+            return surface_attributes(
+                scene, setup, resolved, world, n_world, config,
+                var_ch=meta.tex_channels, flat_normal=meta.flat_normal)
         return surface_attributes_from_planes(
-            scene, planes, config, var_ch=meta.tex_channels,
+            scene, resolved, config, var_ch=meta.tex_channels,
             flat_normal=meta.flat_normal)
 
     def pcf(shadowmap, attrs, view):
@@ -157,9 +172,9 @@ def profile_passes(
             dtype=torch.float32, device=dev)
     raster_args = (scene, setup, world, n_world)
     out["raster"] = _time_stage(raster, raster_args, reps, on_card)
-    depth, _tid, planes = raster(*raster_args)
-    out["attrs"] = _time_stage(attrs_fn, (scene, planes), reps, on_card)
-    attrs = attrs_fn(scene, planes)
+    depth, _tid, resolved = raster(*raster_args)
+    out["attrs"] = _time_stage(attrs_fn, (scene, resolved), reps, on_card)
+    attrs = attrs_fn(scene, resolved)
     if config.enable_shadow:
         out["pcf"] = _time_stage(pcf, (shadowmap, attrs, view), reps,
                                  on_card)
