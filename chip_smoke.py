@@ -29,7 +29,12 @@ and config 5's world in four contiguous bands, through
 K1 / K2 band call replayed); and the JAX package's raster values (phase
 ``rasters``: config 3 at "pallas" and "fused", config 1 at "pallas" and
 config 5's world at "jnp", each against its "auto" frame; every K1 and
-fma call of those frames replayed). Every kernel is replayed on the inputs a
+fma call of those frames replayed); and the probe tools (phase ``probes``:
+``tools/gather_probe.py`` at its 4096 tiles, both axes, K 1-128, kernel
+gather_probe; ``tools/walk_stats.py``'s FMA rate at 1, 3 and 8 chains,
+kernel fma_peak, and the strip walk's floor on config 3's and config 4's
+GBuffer pairs beside kernel pair_raster_fused's time; both kernels held
+against their plain versions bit for bit). Every kernel is replayed on the inputs a
 frame gave it and held against its plain PyTorch version on the card, and timed as
 device time (its calls replayed from a CUDA graph, ``ms``) and as events around
 eager calls (``eager_ms``, which includes the host's cost per call where that
@@ -68,7 +73,6 @@ from zeldaengine_tpu_torch.engine import Engine  # noqa: E402
 from zeldaengine_tpu_torch.livelink import (  # noqa: E402
     editor_request, send_data_to_engine)
 from zeldaengine_tpu_torch.math import transforms  # noqa: E402
-from zeldaengine_tpu_torch.meshlet import build_meshlets  # noqa: E402
 from zeldaengine_tpu_torch.ops import _build  # noqa: E402
 from zeldaengine_tpu_torch.ops import lighting, lighting_cuda  # noqa: E402
 from zeldaengine_tpu_torch.ops import pcf_cuda, rasterize as rast  # noqa: E402
@@ -85,6 +89,9 @@ from zeldaengine_tpu_torch.scene import (  # noqa: E402
 from zeldaengine_tpu_torch.scene.assets import (  # noqa: E402
     build_scene_from_world)
 from zeldaengine_tpu_torch.scene.demo import build_golden_scene  # noqa: E402
+from zeldaengine_tpu_torch.tools import gather_probe, walk_stats  # noqa: E402
+from zeldaengine_tpu_torch.tools._scenes import (  # noqa: E402
+    config3, config4, config4_scene)
 from zeldaengine_tpu_torch.utils.image import read_png  # noqa: E402
 
 # The setup's seeded edge cases, shared with the CPU tests.
@@ -98,10 +105,6 @@ from _torch_setup_cases import (  # noqa: E402
 # kernels' bounds are stated against.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
-# fp32 operations of one (pixel, pair) test: 3 edge functions (2 mul +
-# 2 add each), depth (3 mul + 2 add), edge sum (2), edge min (2), five
-# compares and the select.
-OPS_PER_TEST = 26
 # fp32 operations of one (pixel, light) pair of kernel point_lights: the
 # light vector (3 sub, 5 for its length, max, sqrt, 3 div), the half vector
 # (3 add, 7 for its length, 3 div), three clamped dot products (7 each),
@@ -200,11 +203,14 @@ BAND_CASES = (("config3_striped_4", "config3", 4, True),
               ("config5_contiguous_4", "config5", 4, False))
 # Phase rasters: the JAX package's raster values. "pallas" rasterizes the
 # GBuffer (and forward) pass through K1 with ids instead of K2, and
-# resolves it through the gather path, whose multiply-adds are 11 launches
+# resolves it through the gather path, whose multiply-adds are 31 launches
 # of kernel fma a pass (the edge values 1, the quotient rule 2, the corner
-# mix 6, the uv footprint 2); "jnp" rasterizes every pass brute force (no
-# K1, no K2) before the same gather path; "fused" is the "auto" route.
-GATHER_FMA = 11
+# mix 6, the uv footprint 2, its TBN 20: the uv determinant and the tangent
+# 1 each, six sums of squares 2 each, n . t 2, the tangent's projection 1,
+# the cross product 1, the normal's sum 2); "jnp" rasterizes every pass
+# brute force (no K1, no K2) before the same gather path; "fused" is the
+# "auto" route.
+GATHER_FMA = 31
 PALLAS_PATH = dict(MAIN_PATH, pair_raster=2, pair_raster_fused=0,
                    fma=MAIN_PATH["fma"] + GATHER_FMA)
 PALLAS_FORWARD_PATH = dict(FORWARD_PATH, pair_raster=1, pair_raster_fused=0,
@@ -263,6 +269,13 @@ KERNELS = {
     "triangle_setup": dict(
         source="zeldaengine_tpu_torch/csrc/triangle_setup.cu",
         replaces="zeldaengine_tpu/ops/rasterize.py:51"),
+    # The probe tools' kernels (phase probes), on no frame path.
+    "gather_probe": dict(
+        source="zeldaengine_tpu_torch/csrc/gather_probe.cu",
+        replaces="tools/pallas_gather_probe.py:27"),
+    "fma_peak": dict(
+        source="zeldaengine_tpu_torch/csrc/fma_peak.cu",
+        replaces="tools/walk_stats.py:53"),
 }
 
 
@@ -286,6 +299,19 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(``fn()``, its device ms by CUDA events): one call, timed and
+    kept."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -495,7 +521,7 @@ def raster_bound(pairs, setup, height, width, kw, out_words: int,
                + (pairs.starts.numel() * 2 + pairs.sstarts.numel() * 2 + 2) * 4
                + height * width * 4 * out_words)
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = tests * OPS_PER_TEST / PEAK_FP32_PER_S * 1e3
+    t_ops = tests * walk_stats.OPS_PER_TEST / PEAK_FP32_PER_S * 1e3
     extra = dict(pixel_pair_tests_without_skip=all_tests,
                  **{k: v for k, v in walk.items() if k != "tests"})
     emit("bound", path=path, pixel_pair_tests_in_bbox=tests,
@@ -520,6 +546,15 @@ def one_block_a_tile():
 
 def bytes_bound(n_bytes: int) -> dict:
     return dict(bound_ms=n_bytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
+
+
+def ops_bound(n_bytes: int, n_ops: int) -> dict:
+    """The larger of bytes over the memory rate and fp32 operations (an
+    FMA as two) over the fp32 peak."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_FP32_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def cmp_setup(k, p) -> dict:
@@ -1502,12 +1537,6 @@ def phase_kernels(captured: dict, frame_launches: dict, paths: dict,
     return rows
 
 
-def config3() -> EngineConfig:
-    """bench.py's config 3 (bench.py:442-448), nothing else changed."""
-    return EngineConfig(width=1920, height=1080, tile_h=64, tile_w=32,
-                        max_pairs=384 * 1024, max_pairs_shadow=256 * 1024)
-
-
 def timed_frames(scene, meta, world, config, warm: int, timed: int):
     """``warm + timed`` frames with moving time / light roll, the launch
     counts set to 0 just before and read just after. Returns (frame_ms
@@ -1677,46 +1706,6 @@ def phase_forward():
     return captured, launches, warm + timed
 
 
-def config4() -> EngineConfig:
-    """bench.py's config 4 (bench.py:254-334), nothing changed."""
-    return EngineConfig(width=1024, height=1024, shadowmap_dim=512,
-                        texture_size=128, cubemap_size=64,
-                        background_size=128, max_point_lights=8,
-                        pair_expand=4, pair_expand_shadow=2,
-                        compact_tris=384 * 1024,
-                        compact_tris_shadow=96 * 1024,
-                        shadow_cone_cull=True, subpixel_cull=True,
-                        max_pairs=384 * 1024, max_pairs_shadow=64 * 1024)
-
-
-def config4_scene(config, device="cuda"):
-    """Config 4's scene as bench.py builds it: 16 spheres of
-    make_sphere(0.8, 140, 230) on a 4x4 grid, each baked to meshlets by the
-    native builder, and bench.py's make_world(pos=(6, -6, 3), lookat=(0, 0,
-    0.8), z_far=80). Returns (scene, meta, world, bake seconds)."""
-    b = SceneBuilder(config)
-    mat = b.add_material({})
-    t0 = time.time()
-    mesh = make_sphere(0.8, rings=140, sectors=230)
-    for i in range(16):
-        offs = np.float32([(i % 4 - 1.5) * 2.2, (i // 4 - 1.5) * 2.2, 0.8])
-        b.add_meshlet_object(build_meshlets(
-            mesh.positions + offs, mesh.indices, normals=mesh.normals,
-            uvs=mesh.uvs), mat)
-    bake_s = time.time() - t0
-    scene, meta = b.build(device)
-    w = World()
-    w.main_camera = CameraDesc(position=np.float32([6.0, -6.0, 3.0]),
-                               lookat=np.float32([0.0, 0.0, 0.8]),
-                               z_far=80.0)
-    moon = np.float32([20.0, 0.0, 20.0])
-    w.directional_lights = [
-        LightDesc(position=moon, type=0,
-                  color=np.float32([1.0, 0.95, 0.85]), intensity=3.0,
-                  direction=moon / np.linalg.norm(moon))]
-    return scene, meta, w, bake_s
-
-
 def config4_culls(scene, view, config) -> dict:
     """Meshlets kept by the frame's camera cull and by its shadow cull, as
     ``render_rows`` calls them."""
@@ -1766,6 +1755,7 @@ def phase_frame4():
     check(overflow == {"compact_overflow": 0, "pair_overflow": 0},
           f"config 4 overflowed at time 0: {overflow}")
     (setup_sh, _), (setup_gb, _) = captured["build_pairs"]
+    SCENES["config4"] = (scene, meta, world, config)
     kept = config4_culls(scene, build_view_state(world, config, time=0.0),
                          config)
     busy = phase_profile(scene, meta, world, config, phase="profile_frame4")
@@ -3021,6 +3011,150 @@ def phase_rasters(scene, meta, world, config):
         "fma": dict(rasters_replays=fma_checks)}
 
 
+def phase_probes(scene, meta, world, config):
+    """The probe tools of ``zeldaengine_tpu_torch/tools`` (the JAX
+    package's ``tools/pallas_gather_probe.py`` and ``tools/walk_stats.py``)
+    driven as their CLIs drive them, the launch counts set to 0 just before
+    and read just after: ``gather_probe.probe`` at the tool's 4096 tiles,
+    both axes, K 1, 8, 32 and 128 (kernel gather_probe); ``walk_stats.
+    fma_rate`` at 1, 3 and 8 chains on the tool's 67,108,864 elements
+    (kernel fma_peak); ``walk_stats.frame_passes`` and ``report`` on config
+    3's scene (phase frame) and config 4's (phase frame4): the strip walk's
+    tests and operations on the GBuffer pairs, its floor at the measured
+    rates, kernel pair_raster_fused's time on those pairs. Then each probe
+    kernel against its plain version on the card, bit for bit: gather_probe
+    at every (axis, K), fma_peak at every chain count on a seeded input of
+    the full size (the kernel timed from a CUDA graph, the plain version
+    once, on the call that is compared); and the walk floor of the same
+    frames' shadow pairs beside kernel pair_raster. Returns (the two
+    kernels' rows, the walk floors for the raster kernels' rows)."""
+    ops.reset_kernel_launch_counts()
+    gather = gather_probe.probe(device="cuda")
+    rates = {c: walk_stats.fma_rate(c) for c in walk_stats.CHAINS}
+    walks, passes = {}, {}
+    for name, (s, m, w, c) in (("config3", (scene, meta, world, config)),
+                               ("config4", SCENES["config4"])):
+        passes[name] = walk_stats.frame_passes(s, m, w, c)
+        walks[name] = walk_stats.report(name, *passes[name]["gbuffer"],
+                                        rates)
+    torch.cuda.synchronize()
+    launches = ops.kernel_launch_counts()
+    # A config-3 and a config-4 frame (at the tool's view, whose light
+    # capacities give config 4's frame point-light slots: K5 runs there
+    # too); probe(): a warm-up and 20 timed launches a case; fma_rate: a
+    # warm-up and 5; report: a warm-up and 20 of kernel pair_raster_fused
+    # on each frame's pairs.
+    want = {k: MAIN_PATH.get(k, 0) + FRAME4_PATH.get(k, 0)
+            for k in {*MAIN_PATH, *FRAME4_PATH}}
+    want["point_lights"] += 1
+    want["pair_raster_fused"] += 2 * (1 + 20)
+    want["gather_probe"] = (len(gather_probe.AXES) * len(gather_probe.K_OPS)
+                            * (1 + 20))
+    want["fma_peak"] = len(walk_stats.CHAINS) * (1 + 5)
+    check_launches(launches, want, "probes")
+    # Both raster kernels beside their walk floors, timed as their rows
+    # are (graph_ms): K2 on the GBuffer pairs, K1 on the shadow pairs.
+    floor_rate = rates[8]["fma_ops_per_s"]
+    k1_floors = {}
+    for name, frame_pairs in passes.items():
+        pairs, h, wd, kw = frame_pairs["gbuffer"]
+        walks[name]["k2_graph_ms"] = graph_ms(
+            lambda: rc.rasterize_pairs_fused(pairs, h, wd, **kw), 10)
+        walks[name]["k2_graph_over_floor"] = (walks[name]["k2_graph_ms"]
+                                              / walks[name]["floor_ms"])
+        pairs, h, wd, kw = frame_pairs["shadow"]
+        load = walk_stats.walk_load(pairs, h, wd, kw)
+        k1_ms = graph_ms(lambda: rc.rasterize_pairs(pairs, h, wd, **kw), 10)
+        floor = load["elem_ops"] / floor_rate * 1e3
+        k1_floors[name] = dict(load, floor_ms=floor, k1_graph_ms=k1_ms,
+                               k1_graph_over_floor=k1_ms / floor)
+    del passes
+
+    n_tiles = 4096
+    t1_cases = []
+    for axis in gather_probe.AXES:
+        t, idx = gather_probe.probe_inputs(n_tiles, axis, 0, "cuda")
+        idx64 = idx.long()
+        tiles = (-1, *gather_probe.TILE)
+        for k_ops in gather_probe.K_OPS:
+            def call(backend="cuda"):
+                return gather_probe.gather_probe(t, idx, k_ops, axis,
+                                                 backend=backend)
+            kern = call()
+            plain, plain_ms = timed_once(lambda: call("torch"))
+            check(same_bits(kern, plain),
+                  f"gather_probe axis {axis}, K {k_ops}: not bit for bit")
+            case = dict(axis=axis, k=k_ops, max_abs_err=float(
+                (kern - plain).abs().max()), **kernel_times(call, 10),
+                plain_ms=plain_ms, **ops_bound(12 * t.numel(),
+                                               k_ops * t.numel()))
+            if k_ops == 1:
+                # The one PyTorch call of this case (int64 indices, made
+                # beforehand).
+                if axis == 1:
+                    def library():
+                        return torch.gather(t, 1, idx64)
+                else:
+                    def library():
+                        return torch.gather(t.view(tiles), 1,
+                                            idx64.view(tiles)).view(t.shape)
+                check(same_bits(library(), kern),
+                      f"torch.gather differs from gather_probe, axis {axis}")
+                case["library_ms"] = graph_ms(library, 10)
+            t1_cases.append(case)
+        del t, idx, idx64
+    main1 = t1_cases[0]
+    check((main1["axis"], main1["k"]) == (1, 1), "T1's first case")
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    a = torch.rand((walk_stats.STEPS * walk_stats.BLOCK[0],
+                    walk_stats.BLOCK[1]), generator=gen,
+                   device="cuda") * 2.0 - 1.0
+    n_ops = walk_stats.N_OPS
+    t2_cases = []
+    for chains in walk_stats.CHAINS:
+        def call(backend="cuda"):
+            return walk_stats.fma_peak(a, chains, n_ops, backend=backend)
+        kern = call()
+        plain, plain_ms = timed_once(lambda: call("torch"))
+        check(same_bits(kern, plain),
+              f"fma_peak, {chains} chains: not bit for bit")
+        err = float((kern - plain).abs().max())
+        del kern, plain
+        fmas = a.numel() * n_ops * chains
+        t2_cases.append(dict(
+            chains=chains, n_ops=n_ops, elements=a.numel(), max_abs_err=err,
+            **kernel_times(call, 10), plain_ms=plain_ms,
+            fma_ops_per_s=rates[chains]["fma_ops_per_s"],
+            rate_ms=rates[chains]["ms"],
+            **ops_bound(8 * a.numel(),
+                        2 * fmas + (chains - 1) * a.numel())))
+    del a
+    main2 = t2_cases[-1]
+    emit("probes", launches=launches, gather=gather,
+         fma_rates={c: r for c, r in rates.items()}, walk_floor=walks,
+         walk_floor_shadow=k1_floors,
+         gather_probe_cases=t1_cases, fma_peak_cases=t2_cases)
+    rows = [
+        dict(name="gather_probe", route="cuda", **KERNELS["gather_probe"],
+             launches=launches["gather_probe"],
+             max_abs_err=max(c["max_abs_err"] for c in t1_cases),
+             **{k: main1[k] for k in ("ms", "kernel_ms", "eager_ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")},
+             shape=[n_tiles * 8, 128], axis=1, k=1, cases=t1_cases),
+        dict(name="fma_peak", route="cuda", **KERNELS["fma_peak"],
+             launches=launches["fma_peak"],
+             max_abs_err=max(c["max_abs_err"] for c in t2_cases),
+             **{k: main2[k] for k in ("ms", "kernel_ms", "eager_ms",
+                                      "plain_ms", "bound_ms", "bound_by")},
+             # No PyTorch call runs a chain of fused multiply-adds.
+             library_ms=None, chains=main2["chains"], n_ops=n_ops,
+             cases=t2_cases)]
+    return rows, {"pair_raster_fused": {"walk_floor": walks},
+                  "pair_raster": {"walk_floor": k1_floors}}
+
+
 def device_profile(fn, phase: str) -> dict:
     """Where one call of ``fn`` (ending in a synchronise) spends device
     time: the ten device operations with the largest summed time
@@ -3236,12 +3370,23 @@ def main() -> None:
     rasters_launches, rasters_extra = timed("rasters", phase_rasters, scene,
                                             meta, world, config)
     path_launches.update(rasters_launches)
+    probe_rows, probes_extra = timed("probes", phase_probes, scene, meta,
+                                     world, config)
     rows = timed("kernels", phase_kernels, captured, launches, paths,
                  path_launches)
     for row in rows:
         row.update(options_extra.get(row["name"], {}))
         row.update(bands_extra.get(row["name"], {}))
         row.update(rasters_extra.get(row["name"], {}))
+        row.update(probes_extra.get(row["name"], {}))
+    # The probe kernels run on no frame path.
+    for row in probe_rows:
+        row["launches_per_frame_by_path"] = {
+            path: counts.get(row["name"], 0)
+            for path, counts in path_launches.items()}
+    rows += probe_rows
+    check(sorted(r["name"] for r in rows) == sorted(KERNELS),
+          f"the kernels line has {len(rows)} rows for {len(KERNELS)} kernels")
     check(not FAILURES, "; ".join(FAILURES))
     timed("frame_vs_plain", phase_frame_vs_plain)
     timed("engine", phase_engine)

@@ -31,6 +31,8 @@ def test_package_layout_is_there():
                  "zeldaengine_tpu_torch/meshlet/io.py",
                  "zeldaengine_tpu_torch/ops/culling.py",
                  "zeldaengine_tpu_torch/tools/meshletgen.py",
+                 "zeldaengine_tpu_torch/tools/gather_probe.py",
+                 "zeldaengine_tpu_torch/tools/walk_stats.py",
                  "zeldaengine_tpu_torch/livelink/server.py",
                  "zeldaengine_tpu_torch/livelink/client.py",
                  "zeldaengine_tpu_torch/livelink/editor.py",
@@ -48,11 +50,12 @@ def test_package_layout_is_there():
     csrc = set(os.listdir(os.path.join(PKG, "csrc")))
     assert {"pair_raster.cu", "pair_raster_fused.cu", "pcf_taps.cu",
             "bilinear_tap.cu", "point_lights.cu", "pcf_window.cu",
-            "pcf_window_table.cu", "fma.cu", "triangle_setup.cu"} <= csrc
+            "pcf_window_table.cu", "fma.cu", "triangle_setup.cu",
+            "gather_probe.cu", "fma_peak.cu"} <= csrc
     # Every kernel registered with its wrapper has a C entry point bound.
     from zeldaengine_tpu_torch.ops import KERNEL_WRAPPERS, _build
 
-    assert len(KERNEL_WRAPPERS) == 10
+    assert len(KERNEL_WRAPPERS) == 12
     for name in KERNEL_WRAPPERS:
         assert "zk_" + name in _build._SIGNATURES
 

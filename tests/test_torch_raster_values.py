@@ -96,9 +96,8 @@ def test_surface_attributes_matches_jax(demo):
     positions and normals. The reference's bar between its two attribute
     paths is 2e-4 (tests/test_fused.py); the port follows the jitted
     function's fused multiply-adds (edge values, quotient rule, the corner
-    mix), so the interpolants, bary_min and the material channels are bit
-    for bit, and the normal, whose TBN the fused path shares, is at most
-    1.2e-7 off (one ulp)."""
+    mix, the TBN of ``_gathered_tangent_normal``), so the interpolants,
+    bary_min, the material channels and the normal are bit for bit."""
     jcfg, jscene, jview, jmeta = demo[:4]
     scene = demo[4]
 
@@ -144,7 +143,7 @@ def test_surface_attributes_matches_jax(demo):
     for name in ("world_pos", "vertex_color", "bary_min"):
         assert (getattr(got, name).numpy()[~cov] == 0.0).all(), name
         assert (np.asarray(getattr(want, name))[~cov] == 0.0).all(), name
-    assert err.pop("normal") <= 1.2e-7
+    assert err.pop("normal") == 0.0
     assert max(err.values()) == 0.0, err
 
 

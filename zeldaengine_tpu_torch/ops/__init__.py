@@ -47,7 +47,9 @@ from zeldaengine_tpu_torch.ops.pcf_tables import (
 # The hand-written kernels, by the name of their C entry point (minus the
 # ``zk_`` prefix), with the wrapper that launches each. Every wrapper
 # carries a plain integer ``launches`` that it raises by one where it
-# launches its kernel, and nowhere else.
+# launches its kernel, and nowhere else. The probe tools' kernels
+# (``gather_probe``, ``fma_peak``) add themselves from their modules,
+# which the end of this file imports.
 KERNEL_WRAPPERS = {
     "pair_raster": rasterize_pairs,
     "pair_raster_fused": rasterize_pairs_fused,
@@ -69,3 +71,10 @@ def kernel_launch_counts() -> dict:
 def reset_kernel_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+
+
+# Imported last: each probe tool registers its kernel's wrapper above
+# (a tool imported first finds this package complete and registers when
+# its own module body ends).
+import zeldaengine_tpu_torch.tools.gather_probe  # noqa: E402,F401
+import zeldaengine_tpu_torch.tools.walk_stats  # noqa: E402,F401

@@ -95,15 +95,57 @@ def _material_texels(scene, config, combo, uv, lod, var_ch):
     return torch.stack(chans, dim=-1)
 
 
+def _gathered_tangent_normal(dpos_dx, dpos_dy, uv_dx, uv_dy, frag_normal,
+                             tex_normal):
+    """``pbr.compute_tangent_normal`` in the form XLA's CPU code gives it
+    inside the JAX package's jitted gather path (``surface_attributes``,
+    the same machine code in its frame at ``raster="pallas"``): each
+    difference of two products fuses its first product, each dot product
+    and sum of squares is an fma chain from component 0 (square roots
+    correctly rounded), and the vectorised loops split the components:
+    ``t - n (n . t)`` is fused on components 0 and 1 only, and the first
+    sum of ``t v0 + b v1 + n v2`` fuses ``b v1`` on components 0 and 1 and
+    ``t v0`` on component 2, the last sum unfused. The planes route keeps
+    ``pbr.compute_tangent_normal`` (its compiled form there)."""
+    fma = transforms.fma_f32
+
+    def normalize(v):
+        return v / transforms.sqrt_f32(
+            torch.clamp_min(transforms.dot3(v, v), 1e-20))[..., None]
+
+    def cross(a, b):  # a_j b_k - a_k b_j, the first product fused
+        return fma(a.roll(-1, -1), b.roll(1, -1),
+                   -(a.roll(1, -1) * b.roll(-1, -1)))
+
+    denom = fma(uv_dx[..., 0], uv_dy[..., 1], -(uv_dy[..., 0] * uv_dx[..., 1]))
+    denom = torch.where(torch.abs(denom) > 1e-12, denom,
+                        torch.full_like(denom, 1e-12))
+    t = fma(uv_dy[..., 1, None], dpos_dx,
+            -(uv_dx[..., 1, None] * dpos_dy)) / denom[..., None]
+    n = normalize(frag_normal)
+    nt = transforms.dot3(n, t)[..., None]
+    t = normalize(torch.cat([fma(-n[..., :2], nt, t[..., :2]),
+                             t[..., 2:] - n[..., 2:] * nt], -1))
+    b = normalize(cross(n, t))
+    v = normalize(2.0 * normalize(tex_normal) - 1.0)
+    tv = t * v[..., 0:1]
+    bv = b * v[..., 1:2]
+    first = torch.cat([fma(b[..., :2], v[..., 1:2], tv[..., :2]),
+                       fma(t[..., 2:], v[..., 0:1], bv[..., 2:])], -1)
+    return normalize(first + n * v[..., 2:3])
+
+
 def _finish_attributes(scene, config, covered, combo, uv, lod, vertex_color,
                        world_pos, frag_normal, duv_dx, duv_dy, dpos_dx,
                        dpos_dy, bary_min=None,
                        var_ch=None,
-                       flat_normal: bool = False) -> SurfaceAttributes:
-    """Material fetch + TBN on the interpolants of either path.
-    Ablations (diagnostics, ``config.ablate``): "lodprobe" writes the
-    tap's inputs (lod / 16, combo / 64, covered) into the base colour,
-    "notex" replaces the fetch by constant texels."""
+                       flat_normal: bool = False,
+                       tangent_normal=pbr.compute_tangent_normal,
+                       ) -> SurfaceAttributes:
+    """Material fetch + TBN (``tangent_normal``) on the interpolants of
+    either path. Ablations (diagnostics, ``config.ablate``): "lodprobe"
+    writes the tap's inputs (lod / 16, combo / 64, covered) into the base
+    colour, "notex" replaces the fetch by constant texels."""
     if "lodprobe" in config.ablate:
         texels = torch.zeros(uv.shape[:2] + (16,), dtype=torch.float32,
                              device=uv.device)
@@ -136,7 +178,7 @@ def _finish_attributes(scene, config, covered, combo, uv, lod, vertex_color,
         # exactly tangent-space +Z after that quirk.
         normal = pbr.normalize(frag_normal)
     else:
-        normal = pbr.compute_tangent_normal(
+        normal = tangent_normal(
             dpos_dx, dpos_dy, duv_dx, duv_dy, frag_normal, tex_normal
         )
 
@@ -178,7 +220,8 @@ def surface_attributes(
     multiply-adds are fused where the JAX package's compiled gather path
     fuses them on the CPU (``transforms.fma_f32``, looked up at each call:
     a caller may patch it to note the calls): the edge values, the quotient
-    rule and the three-corner mix. Plain PyTorch (and kernel ``fma``) on
+    rule, the three-corner mix, the uv footprint and the TBN
+    (``_gathered_tangent_normal``). Plain PyTorch (and kernel ``fma``) on
     every device: the JAX package computes this outside any Pallas
     kernel."""
     fma_f32 = transforms.fma_f32
@@ -248,7 +291,8 @@ def surface_attributes(
         vertex_color=a_i[..., 2:5], world_pos=a_i[..., 5:8],
         frag_normal=a_i[..., 8:11], duv_dx=duv_dx, duv_dy=duv_dy,
         dpos_dx=a_dx[..., 5:8], dpos_dy=a_dy[..., 5:8], bary_min=bary_min,
-        var_ch=var_ch, flat_normal=flat_normal)
+        var_ch=var_ch, flat_normal=flat_normal,
+        tangent_normal=_gathered_tangent_normal)
 
 
 def surface_attributes_from_planes(
