@@ -31,7 +31,8 @@ K1 / K2 band call replayed); and the JAX package's raster values (phase
 config 5's world at "jnp", each against its "auto" frame; every K1 and
 fma call of those frames replayed); and the probe tools (phase ``probes``:
 ``tools/gather_probe.py`` at its 4096 tiles, both axes, K 1-128, kernel
-gather_probe; ``tools/walk_stats.py``'s FMA rate at 1, 3 and 8 chains,
+gather_probe in each of its layouts with its byte and shared-memory
+bounds; ``tools/walk_stats.py``'s FMA rate at 1, 3 and 8 chains,
 kernel fma_peak, and the strip walk's floor on config 3's and config 4's
 GBuffer pairs beside kernel pair_raster_fused's time; both kernels held
 against their plain versions bit for bit). Every kernel is replayed on the inputs a
@@ -379,7 +380,9 @@ def phase_device() -> dict:
                           capture_output=True, text=True, check=True).stdout
     info = dict(
         kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-        nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+        nvidia_smi=smi, max_sm_clock_hz=gather_probe.max_sm_clock_hz(),
+        sm_count=torch.cuda.get_device_properties(0).multi_processor_count,
+        torch=torch.__version__, cuda=torch.version.cuda,
         nvcc=nvcc.strip().splitlines()[-2].strip(), python=sys.version.split()[0])
     emit("device", **info)
     return info
@@ -3011,6 +3014,63 @@ def phase_rasters(scene, meta, world, config):
         "fma": dict(rasters_replays=fma_checks)}
 
 
+@contextlib.contextmanager
+def gather_layout(name: str):
+    """Kernel gather_probe in layout ``name`` at every K: the wrapper's
+    ``PRIVATE_MIN_K`` moved below or above every K (the sublane axis has
+    one layout)."""
+    saved = gather_probe.PRIVATE_MIN_K
+    if name != "sublane":
+        gather_probe.PRIVATE_MIN_K = 0 if name == "lane_private" else 1 << 31
+    try:
+        yield
+    finally:
+        gather_probe.PRIVATE_MIN_K = saved
+
+
+def gather_probe_bits() -> dict:
+    """Kernel gather_probe against ``gather_probe_plain`` bit for bit in
+    every layout of both axes, at K 0, 1, 3, 8, 32, 33, 127 and 128 (the
+    odd ones end in the unrolled loop's remainder) over 1, 4096 and 4097
+    tiles."""
+    k_list = (0, 1, 3, 8, 32, 33, 127, 128)
+    n_cases, err = 0, 0.0
+    for n_tiles in (1, 4096, 4097):
+        for axis in gather_probe.AXES:
+            t, idx = gather_probe.probe_inputs(n_tiles, axis, n_tiles,
+                                               "cuda")
+            for k_ops in k_list:
+                plain = gather_probe.gather_probe(t, idx, k_ops, axis,
+                                                  backend="torch")
+                for name in gather_probe.AXIS_LAYOUTS[axis]:
+                    with gather_layout(name):
+                        kern = gather_probe.gather_probe(t, idx, k_ops, axis)
+                    check(same_bits(kern, plain),
+                          f"gather_probe {name}, K {k_ops}, {n_tiles} "
+                          "tiles: not bit for bit")
+                    err = max(err, float((kern - plain).abs().max()))
+                    n_cases += 1
+    return dict(cases=n_cases, k=list(k_list), tiles=[1, 4096, 4097],
+                max_abs_err=err)
+
+
+def gather_probe_sass():
+    """The gather loop of each layout in the built library's SASS
+    (``gather_probe.kernel_sass``): every gather one LDS and one FADD, no
+    load shared across k; None where the toolkit has no cuobjdump."""
+    try:
+        loops = gather_probe.kernel_sass(_build.build())
+    except FileNotFoundError:
+        return None
+    check(sorted(loops) == sorted(gather_probe.LAYOUTS),
+          f"gather_probe SASS: loops of {sorted(loops)}")
+    for name, loop in loops.items():
+        check(loop["lds"] == loop["fadd"] > 0,
+              f"gather_probe SASS, {name}: {loop['lds']} LDS for "
+              f"{loop['fadd']} FADD in the gather loop")
+    return loops
+
+
 def phase_probes(scene, meta, world, config):
     """The probe tools of ``zeldaengine_tpu_torch/tools`` (the JAX
     package's ``tools/pallas_gather_probe.py`` and ``tools/walk_stats.py``)
@@ -3026,8 +3086,15 @@ def phase_probes(scene, meta, world, config):
     at every (axis, K), fma_peak at every chain count on a seeded input of
     the full size (the kernel timed from a CUDA graph, the plain version
     once, on the call that is compared); and the walk floor of the same
-    frames' shadow pairs beside kernel pair_raster. Returns (the two
-    kernels' rows, the walk floors for the raster kernels' rows)."""
+    frames' shadow pairs beside kernel pair_raster. Each gather_probe case
+    carries its layout, counts, byte and shared-memory bounds (SM count
+    from the device, maximum SM clock from nvidia-smi) and the share of
+    the larger; lane K 128 also the shared layout's time
+    (``conflicted_ms``). Then every layout at K 1-128 in powers of two
+    (``crossover``), every layout bit for bit at the listed K over 1, 4096
+    and 4097 tiles (``gather_probe_bits``), and each layout's gather loop
+    in the SASS (``gather_probe_sass``). Returns (the two kernels' rows,
+    the walk floors for the raster kernels' rows)."""
     ops.reset_kernel_launch_counts()
     gather = gather_probe.probe(device="cuda")
     rates = {c: walk_stats.fma_rate(c) for c in walk_stats.CHAINS}
@@ -3071,7 +3138,10 @@ def phase_probes(scene, meta, world, config):
     del passes
 
     n_tiles = 4096
-    t1_cases = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = gather_probe.max_sm_clock_hz()
+    check(clock is not None, "nvidia-smi gave no maximum SM clock")
+    t1_cases, crossover = [], []
     for axis in gather_probe.AXES:
         t, idx = gather_probe.probe_inputs(n_tiles, axis, 0, "cuda")
         idx64 = idx.long()
@@ -3084,10 +3154,23 @@ def phase_probes(scene, meta, world, config):
             plain, plain_ms = timed_once(lambda: call("torch"))
             check(same_bits(kern, plain),
                   f"gather_probe axis {axis}, K {k_ops}: not bit for bit")
+            counts = gather_probe.probe_counts(n_tiles, k_ops)
+            bounds = gather_probe.probe_bounds(counts, sms, clock)
             case = dict(axis=axis, k=k_ops, max_abs_err=float(
                 (kern - plain).abs().max()), **kernel_times(call, 10),
                 plain_ms=plain_ms, **ops_bound(12 * t.numel(),
-                                               k_ops * t.numel()))
+                                               k_ops * t.numel()),
+                layout=gather_probe.layout(axis, k_ops), **counts,
+                byte_bound_ms=bounds["byte_bound_ms"],
+                smem_bound_ms=bounds["smem_bound_ms"],
+                larger_bound=bounds["bound_by"])
+            case["share"] = max(bounds["byte_bound_ms"],
+                                bounds["smem_bound_ms"]) / case["ms"]
+            if axis == 1 and k_ops == max(gather_probe.K_OPS):
+                # The rows as they are: the bank conflicts the private
+                # layout removes.
+                with gather_layout("lane_shared"):
+                    case["conflicted_ms"] = graph_ms(call, 10)
             if k_ops == 1:
                 # The one PyTorch call of this case (int64 indices, made
                 # beforehand).
@@ -3102,9 +3185,21 @@ def phase_probes(scene, meta, world, config):
                       f"torch.gather differs from gather_probe, axis {axis}")
                 case["library_ms"] = graph_ms(library, 10)
             t1_cases.append(case)
+        # Every layout of the axis at K 1-128 in powers of two: where the
+        # lane axis should take the private layout (PRIVATE_MIN_K).
+        for k_ops in (2 ** e for e in range(8)):
+            times = {}
+            for name in gather_probe.AXIS_LAYOUTS[axis]:
+                with gather_layout(name):
+                    times[name] = graph_ms(
+                        lambda: gather_probe.gather_probe(t, idx, k_ops,
+                                                          axis), 10)
+            crossover.append(dict(axis=axis, k=k_ops, ms=times))
         del t, idx, idx64
     main1 = t1_cases[0]
     check((main1["axis"], main1["k"]) == (1, 1), "T1's first case")
+    t1_bits = gather_probe_bits()
+    t1_sass = gather_probe_sass()
 
     gen = torch.Generator(device="cuda").manual_seed(13)
     a = torch.rand((walk_stats.STEPS * walk_stats.BLOCK[0],
@@ -3131,18 +3226,24 @@ def phase_probes(scene, meta, world, config):
                         2 * fmas + (chains - 1) * a.numel())))
     del a
     main2 = t2_cases[-1]
+    t1_card = dict(sm_count=sms, max_sm_clock_hz=clock,
+                   private_min_k=gather_probe.PRIVATE_MIN_K)
     emit("probes", launches=launches, gather=gather,
          fma_rates={c: r for c, r in rates.items()}, walk_floor=walks,
-         walk_floor_shadow=k1_floors,
-         gather_probe_cases=t1_cases, fma_peak_cases=t2_cases)
+         walk_floor_shadow=k1_floors, gather_probe_card=t1_card,
+         gather_probe_cases=t1_cases, gather_probe_crossover=crossover,
+         gather_probe_bits=t1_bits, gather_probe_sass=t1_sass,
+         fma_peak_cases=t2_cases)
     rows = [
         dict(name="gather_probe", route="cuda", **KERNELS["gather_probe"],
              launches=launches["gather_probe"],
-             max_abs_err=max(c["max_abs_err"] for c in t1_cases),
+             max_abs_err=max([c["max_abs_err"] for c in t1_cases]
+                             + [t1_bits["max_abs_err"]]),
              **{k: main1[k] for k in ("ms", "kernel_ms", "eager_ms",
                                       "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")},
-             shape=[n_tiles * 8, 128], axis=1, k=1, cases=t1_cases),
+             shape=[n_tiles * 8, 128], axis=1, k=1, cases=t1_cases,
+             crossover=crossover, sass=t1_sass, **t1_card),
         dict(name="fma_peak", route="cuda", **KERNELS["fma_peak"],
              launches=launches["fma_peak"],
              max_abs_err=max(c["max_abs_err"] for c in t2_cases),

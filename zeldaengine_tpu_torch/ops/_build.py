@@ -149,7 +149,7 @@ _SIGNATURES = {
     # has_bias, slope_f, const_term, edge, zc, valid, bbox, zmin, stream
     "zk_triangle_setup": [_VP, _VP, _I, _VP, _I, _F, _F, _I, _F, _F, _VP,
                           _VP, _VP, _VP, _VP, _VP],
-    # t, idx, out, n_tiles, axis, k_ops, stream
+    # t, idx, out, n_tiles, layout, k_ops, stream
     "zk_gather_probe": [_VP, _VP, _VP, _I, _I, _I, _VP],
     # a, out, n, chains, n_ops, start (host floats), mult, add, stream
     "zk_fma_peak": [_VP, _VP, ctypes.c_longlong, _I, _I,
