@@ -1,0 +1,9 @@
+"""Layer kernels: kernel ``pair_raster_fused`` (K2, the GBuffer raster)
+against its roofline, over the traced frames the run counts
+(``_roofline.py``), in percent."""
+
+from frame_bench.metrics import _roofline
+
+
+def read(run):
+    return _roofline.share_pct(run, "gbuffer")
